@@ -1,0 +1,40 @@
+"""Plain PyTorch versions of the hand-written kernels (correctness ground truth).
+
+Each function computes what its kernel computes, with ordinary tensor ops.
+The op wrappers in ``ops.py`` use these for tensors on the CPU, the
+backward passes differentiate them, and ``chip_smoke.py`` holds each kernel
+against them on the card.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """Naive attention. q: (B,S,H,D); k,v: (B,T,Kv,D); GQA by head grouping.
+
+    Returns (B,S,H,D) in q.dtype; softmax in fp32. Masked logits are -1e30
+    and queries are right-aligned against keys by T - S. ``window`` applies
+    only with ``causal``, as in ``repro.kernels.ref``.
+    """
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, s, kv, g, d).float()
+    kf = k.float()
+    vf = v.float()
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, kf) / math.sqrt(d)
+    if causal:
+        qi = torch.arange(s, device=q.device)[:, None] + (t - s)
+        ki = torch.arange(t, device=q.device)[None, :]
+        m = ki <= qi
+        if window > 0:
+            m &= ki > qi - window
+        logits = torch.where(m, logits, torch.tensor(-1e30, device=q.device))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w, vf)
+    return out.reshape(b, s, h, d).to(q.dtype)

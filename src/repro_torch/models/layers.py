@@ -1,0 +1,256 @@
+"""Shared neural-net primitives for the model zoo, dense subset (PyTorch).
+
+The port of ``repro.models.layers``, the parts the dense blocks use.
+Parameters are nested dicts of tensors whose keys and einsum layouts match
+the JAX pytree exactly (``wq`` is ``(d, H, hd)``, ``wo`` is ``(H, hd, d)``),
+so JAX weights carry across with ``repro_torch.convert.params_from_numpy``.
+
+The JAX code passes activations through ``repro.parallel.sharding.shard``;
+on one chip that is the identity, so the port leaves it out.
+
+Python scalars that JAX multiplies into a bf16 array are weakly typed and
+rounded to bf16 first; PyTorch keeps them in fp32. ``_weak`` rounds such a
+scalar to the tensor's dtype so both packages compute the same products
+(the embedding scale, attention's ``1/sqrt(d)``, the logit softcap).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _weak(c: float, dtype: torch.dtype) -> float:
+    """``c`` rounded to ``dtype``, as JAX rounds a weakly typed scalar."""
+    return torch.tensor(c, dtype=dtype).item()
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape, in_axis: int = -2) -> torch.Tensor:
+    fan_in = shape[in_axis]
+    std = 1.0 / math.sqrt(fan_in)
+    return torch.randn(shape, generator=gen, device=gen.device) * std
+
+
+def embed_init(gen: torch.Generator, shape) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(cfg: ModelConfig, device: torch.device) -> Params:
+    p = {"scale": torch.ones((cfg.d_model,), device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), device=device)
+    return p
+
+
+def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, unbiased=False, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-6)
+        y = y * p["scale"] + p["bias"]
+    else:  # rmsnorm: x * rsqrt(ms + eps) * scale (not 1 + scale)
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + 1e-6) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S).
+
+    Rotates the split halves of D (not interleaved pairs), as JAX does.
+    """
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)               # (D/2,)
+    angles = positions[..., None].float() * freqs        # (..., S, D/2)
+    angles = angles[..., None, :]                        # (..., S, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp in ("swiglu", "geglu"):
+        return {"wi": dense_init(gen, (d, f)),
+                "wg": dense_init(gen, (d, f)),
+                "wo": dense_init(gen, (f, d))}
+    return {"wi": dense_init(gen, (d, f)),
+            "wo": dense_init(gen, (f, d))}
+
+
+def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = x.dtype
+    h = torch.einsum("...d,df->...f", x, p["wi"].to(dt))
+    if cfg.mlp == "swiglu":
+        g = torch.einsum("...d,df->...f", x, p["wg"].to(dt))
+        h = F.silu(g) * h
+    elif cfg.mlp == "geglu":
+        g = torch.einsum("...d,df->...f", x, p["wg"].to(dt))
+        h = F.gelu(g, approximate="tanh") * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return torch.einsum("...f,fd->...d", h, p["wo"].to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA / MQA, causal, sliding-window)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    return {"wq": dense_init(gen, (d, h, hd), in_axis=0),
+            "wk": dense_init(gen, (d, kv, hd), in_axis=0),
+            "wv": dense_init(gen, (d, kv, hd), in_axis=0),
+            "wo": dense_init(gen, (h, hd, d), in_axis=0)}
+
+
+def _qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor):
+    dt = x.dtype
+    q = torch.einsum("...sd,dhk->...shk", x, p["wq"].to(dt))
+    k = torch.einsum("...sd,dhk->...shk", kv_src, p["wk"].to(dt))
+    v = torch.einsum("...sd,dhk->...shk", kv_src, p["wv"].to(dt))
+    return q, k, v
+
+
+def mha_logits_to_out(q, k, v, mask,
+                      cfg: Optional[ModelConfig]) -> torch.Tensor:
+    """Grouped-query attention core. q: (B,S,H,D); k,v: (B,T,Kv,D).
+
+    mask: broadcastable to (B, 1, S, T) boolean (True = attend) or None.
+    """
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, s, kvh, g, d)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k) / _weak(math.sqrt(d),
+                                                               q.dtype)
+    score_dt = dtype_of(cfg.scores_dtype) if cfg is not None \
+        else torch.float32
+    logits = logits.to(score_dt)
+    if mask is not None:
+        m = mask[:, :, None, :, :] if mask.dim() == 4 else mask
+        neg = torch.tensor(torch.finfo(score_dt).min / 2, dtype=score_dt,
+                           device=logits.device)
+        logits = torch.where(m, logits, neg)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(b, s, h, d)
+
+
+def chunked_attention(q, k, v, cfg: ModelConfig, causal: bool = True,
+                      window: int = 0) -> torch.Tensor:
+    """Online-softmax attention over kv chunks (flash semantics, plain ops).
+
+    Never materializes the full (S, T) score tensor: peak score memory is
+    (S, chunk).
+    """
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    c = min(cfg.attention_chunk, t)
+    n_chunks = t // c
+    if t % c:
+        raise ValueError(f"kv len {t} must divide chunk {c}")
+    qg = q.reshape(b, s, kvh, g, d).float()
+    scale = 1.0 / math.sqrt(d)
+    kc = k.reshape(b, n_chunks, c, kvh, d).float()
+    vc = v.reshape(b, n_chunks, c, kvh, d).float()
+    q_pos = torch.arange(s, device=q.device) + (t - s)
+
+    m_run = torch.full((b, kvh, g, s), -1e30, device=q.device)
+    l_run = torch.zeros((b, kvh, g, s), device=q.device)
+    acc = torch.zeros((b, kvh, g, s, d), device=q.device)
+    for ci in range(n_chunks):
+        logits = torch.einsum("bskgd,bckd->bkgsc", qg, kc[:, ci]) * scale
+        k_pos = ci * c + torch.arange(c, device=q.device)
+        if causal:
+            mask = k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                mask &= k_pos[None, :] > q_pos[:, None] - window
+            logits = torch.where(mask, logits,
+                                 torch.tensor(-1e30, device=q.device))
+        m_new = torch.maximum(m_run, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m_run - m_new)
+        l_run = l_run * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgsc,bckd->bkgsd", p,
+                                                   vc[:, ci])
+        m_run = m_new
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    out = out.reshape(b, kvh * g, s, d).movedim(1, 2)
+    return out.to(q.dtype)
+
+
+def causal_mask(s: int, t: int, device: torch.device,
+                window: int = 0) -> torch.Tensor:
+    """(1, 1, s, t) boolean mask, True = attend."""
+    qi = torch.arange(s, device=device)[:, None]
+    ki = torch.arange(t, device=device)[None, :]
+    m = ki <= qi
+    if window > 0:
+        m = m & (ki > qi - window)
+    return m[None, None]
+
+
+def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor, window: int = 0,
+                    use_rope: bool = True,
+                    causal: bool = True) -> torch.Tensor:
+    """Self-attention over x: (B, S, d)."""
+    q, k, v = _qkv(p, x, x)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.use_flash_kernel and causal and x.shape[1] >= 256 and window == 0:
+        from repro_torch.kernels.ops import flash_attention
+        out = flash_attention(q, k, v, causal=True)
+    elif (cfg.attention_impl == "chunked" and causal
+          and x.shape[1] > cfg.attention_chunk):
+        out = chunked_attention(q, k, v, cfg, causal=True, window=window)
+    else:
+        mask = (causal_mask(x.shape[1], x.shape[1], x.device, window=window)
+                if causal else None)
+        out = mha_logits_to_out(q, k, v, mask, cfg)
+    return torch.einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))

@@ -1,0 +1,192 @@
+"""The unified LM: init / forward / loss, ``attn`` blocks (PyTorch).
+
+The port of ``repro.models.transformer``. The layer stack is a loop over
+repeating pattern groups whose parameters are stacked on axis 0 under
+``"scan"`` (the JAX layout), plus an unrolled remainder under ``"tail"``.
+With ``cfg.remat`` each group runs under ``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint`` with ``nothing_saveable``.
+
+Only the ``attn`` block kind is ported so far; every other kind raises
+``NotImplementedError`` naming its ROADMAP item.
+
+Public API:
+  init_params(gen, cfg)            parameter dict on ``gen.device``
+  forward(params, batch, cfg)      (logits, aux)
+  loss_fn(params, batch, cfg)      (loss, metrics)
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.tree import leaves, tree_map
+from .config import ModelConfig
+from .layers import (Params, _weak, apply_mlp, apply_norm, attention_block,
+                     dense_init, dtype_of, embed_init, init_attention,
+                     init_mlp, init_norm)
+
+Batch = Dict[str, torch.Tensor]
+
+# Block kinds still to port, with the ROADMAP.md module item that ports them.
+_UNPORTED = {
+    "local": "ROADMAP 1.8 (recurrentgemma-2b: local attention)",
+    "rglru": "ROADMAP 1.8 (recurrentgemma-2b: RG-LRU)",
+    "slstm": "ROADMAP 1.9 (xlstm-350m)",
+    "mlstm": "ROADMAP 1.9 (xlstm-350m)",
+    "moe": "ROADMAP 1.10 (deepseek-moe-16b, arctic-480b)",
+    "xattn": "ROADMAP 1.11 (llama-3.2-vision-90b)",
+    "encdec": "ROADMAP 1.11 (whisper-small)",
+}
+
+
+def _check_kind(kind: str) -> None:
+    if kind in _UNPORTED:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet: {_UNPORTED[kind]}")
+
+
+# ---------------------------------------------------------------------------
+# Per-slot block init / apply
+# ---------------------------------------------------------------------------
+
+
+def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
+    _check_kind(kind)
+    p: Params = {"norm1": init_norm(cfg, gen.device),
+                 "attn": init_attention(gen, cfg)}
+    if cfg.d_ff:
+        p["norm2"] = init_norm(cfg, gen.device)
+        p["mlp"] = init_mlp(gen, cfg)
+    return p
+
+
+def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
+    return {"aux_loss": torch.zeros((), device=device),
+            "z_loss": torch.zeros((), device=device)}
+
+
+def _apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    _check_kind(kind)
+    aux = _zero_aux(x.device)
+    x = x + attention_block(p["attn"], apply_norm(p["norm1"], x, cfg),
+                            cfg, positions, window=0,
+                            use_rope=(cfg.rope_theta > 0))
+    if "mlp" in p:
+        x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# Full-model init
+# ---------------------------------------------------------------------------
+
+
+def _unstack(tree, n: int):
+    """Per-group views of a stacked tree (``unbind``: one gradient buffer)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random fp32 parameters on ``gen.device``, laid out as the JAX pytree.
+
+    The leaves are leaf tensors that require grad.
+    """
+    dev = gen.device
+    with torch.no_grad():
+        p: Params = {"embed": embed_init(gen, (cfg.padded_vocab,
+                                               cfg.d_model)) * 0.02,
+                     "final_norm": init_norm(cfg, dev)}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab))
+        if cfg.n_groups > 0:
+            groups = [{f"s{si}_{kind}": _init_block(gen, kind, cfg)
+                       for si, kind in enumerate(cfg.pattern)}
+                      for _ in range(cfg.n_groups)]
+            p["scan"] = tree_map(lambda *xs: torch.stack(xs), *groups)
+            del groups
+        if cfg.n_tail:
+            p["tail"] = {f"t{si}_{kind}": _init_block(gen, kind, cfg)
+                         for si, kind in enumerate(cfg.tail_pattern)}
+    return tree_map(lambda x: x.requires_grad_(True), p)
+
+
+def param_count(params: Params) -> int:
+    return sum(x.numel() for x in leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# Forward / loss
+# ---------------------------------------------------------------------------
+
+
+def forward(params: Params, batch: Batch,
+            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    dt = dtype_of(cfg.dtype)
+    x = params["embed"][tokens].to(dt)
+    x = x * _weak(math.sqrt(cfg.d_model), dt)   # scaled in the model dtype
+    positions = torch.arange(s, device=tokens.device)[None, :]
+
+    aux_total = _zero_aux(x.device)
+
+    def group_body(x, gp):
+        aux = _zero_aux(x.device)
+        for si, kind in enumerate(cfg.pattern):
+            x, a = _apply_block(kind, gp[f"s{si}_{kind}"], x, cfg, positions)
+            aux = {k: aux[k] + a[k] for k in aux}
+        return x, aux
+
+    if cfg.n_groups > 0:
+        for gp in _unstack(params["scan"], cfg.n_groups):
+            if cfg.remat:
+                x, a = checkpoint(group_body, x, gp, use_reentrant=False)
+            else:
+                x, a = group_body(x, gp)
+            aux_total = {k: aux_total[k] + a[k] for k in aux_total}
+    for si, kind in enumerate(cfg.tail_pattern):
+        x, a = _apply_block(kind, params["tail"][f"t{si}_{kind}"], x, cfg,
+                            positions)
+        aux_total = {k: aux_total[k] + a[k] for k in aux_total}
+
+    x = apply_norm(params["final_norm"], x, cfg)
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"])
+    logits = torch.einsum("bsd,dv->bsv", x, head.to(dt))
+    if cfg.logits_softcap > 0:
+        logits = _weak(cfg.logits_softcap, dt) * torch.tanh(
+            logits.float() / cfg.logits_softcap).to(dt)
+    logits = _mask_pad_vocab(logits, cfg)
+    return logits, aux_total
+
+
+def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.padded_vocab == cfg.vocab:
+        return logits
+    valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+    neg = torch.tensor(torch.finfo(torch.float32).min / 2,
+                       device=logits.device).to(logits.dtype)
+    return torch.where(valid, logits, neg)
+
+
+def loss_fn(params: Params, batch: Batch,
+            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    logits, aux = forward(params, batch, cfg)
+    labels = batch["labels"]
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    mask: Optional[torch.Tensor] = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(labels, dtype=torch.float32)
+    ce = ((logz - label_logit) * mask).sum() / torch.clamp(mask.sum(),
+                                                           min=1.0)
+    loss = ce + aux["aux_loss"] + aux["z_loss"]
+    return loss, {"ce": ce, **aux}

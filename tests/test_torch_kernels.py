@@ -1,0 +1,123 @@
+"""The port's flash-attention op (plain path on the CPU) against the JAX
+package's Pallas kernel in interpret mode: the ``test_kernels.py`` matrix,
+T > S, gradients, and the wrapper's refusals. Inputs come from numpy."""
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jax_ref
+from repro.kernels.ops import flash_attention as jax_flash
+from repro_torch.kernels import flash_attention
+from repro_torch.kernels.flash_attention import build, flash_attention_fwd
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def qkv(b, s, h, kv, d, dtype, t=None, seed=7):
+    rng = np.random.default_rng(seed)
+    t = t or s
+    arrs = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
+    return ([jnp.asarray(a).astype(JNP[dtype]) for a in arrs],
+            [torch.from_numpy(a).to(TORCH[dtype]) for a in arrs])
+
+
+def check(b, s, h, kv, d, dtype, causal=True, window=0, t=None):
+    (jq, jk, jv), (q, k, v) = qkv(b, s, h, kv, d, dtype, t=t)
+    want = np.asarray(jax_flash(jq, jk, jv, causal, window), np.float32)
+    got = flash_attention(q, k, v, causal, window)
+    assert got.dtype == TORCH[dtype] and got.shape == q.shape
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", [
+    (1, 128, 1, 1, 64),
+    (2, 256, 4, 2, 64),
+    (1, 512, 8, 8, 128),
+    (2, 384, 6, 2, 64),      # non-power-of-two seq (divisible blocks)
+    (1, 256, 4, 1, 128),     # MQA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_sweep(b, s, h, kv, d, dtype):
+    check(b, s, h, kv, d, dtype)
+
+
+@pytest.mark.parametrize("window", [64, 128, 256])
+def test_sliding_window(window):
+    check(1, 512, 4, 2, 64, "float32", window=window)
+
+
+def test_noncausal():
+    check(2, 256, 4, 4, 64, "float32", causal=False)
+
+
+@pytest.mark.parametrize("window", [0, 128])
+def test_queries_right_aligned_when_t_exceeds_s(window):
+    check(1, 128, 4, 2, 64, "float32", window=window, t=384)
+
+
+def test_head_dim_256_bf16():
+    """The gemma-7b head width, at a CPU-sized sequence."""
+    check(1, 256, 2, 2, 256, "bfloat16")
+
+
+def test_grads_match_jax():
+    (jq, jk, jv), (q, k, v) = qkv(1, 256, 2, 2, 64, "float32")
+
+    def f(q, k, v):
+        return jnp.sum(jax_flash(q, k, v, True, 0) ** 2)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    (flash_attention(q, k, v, True, 0) ** 2).sum().backward()
+    for a, b in zip((q.grad, k.grad, v.grad), want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_plain_reference_matches_jax_reference():
+    (jq, jk, jv), (q, k, v) = qkv(2, 128, 4, 2, 64, "float32")
+    from repro_torch.kernels.ref import flash_attention_ref
+    want = np.asarray(jax_ref.flash_attention_ref(jq, jk, jv, causal=True,
+                                                  window=32))
+    got = flash_attention_ref(q, k, v, causal=True, window=32)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_undividable_seq_raises_like_jax():
+    (jq, jk, jv), (q, k, v) = qkv(1, 200, 2, 2, 64, "float32")
+    with pytest.raises(ValueError, match="must divide blocks"):
+        jax_flash(jq, jk, jv, True, 0)
+    with pytest.raises(ValueError, match="must divide blocks"):
+        flash_attention(q, k, v, True, 0)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    _, (q, k, v) = qkv(1, 128, 2, 2, 64, "float32")
+    before = flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd(q, k, v)
+    assert flash_attention_fwd.launches == before
+
+
+def test_op_refuses_other_devices():
+    q = torch.empty((1, 128, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(q, q, q, True, 0)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    # the package attribute is the op; the module is reached by its name
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    monkeypatch.setattr(fa, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(fa.shutil, "which", lambda name: None)
+    monkeypatch.setattr(fa.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build()
