@@ -5,20 +5,24 @@ the port still starts on the card).
     python3 chip_smoke.py
 
 Run from the repo root, with nothing but the checkout: it builds every
-kernel from ``src/repro_torch/kernels/csrc/`` into ``build/``, then
+kernel from ``src/repro_torch/kernels/csrc/`` into ``build/`` (one ``nvcc``
+for each source, all started together), then
 
   1. holds each kernel against its plain PyTorch version on the card over
-     the reference test matrix and at the shapes of the main path;
-  2. checks the model on the card against itself with the kernel off
-     (gemma-7b smoke config with head_dim 64, fp32, S = 256: loss and
-     gradients);
-  3. drives the main path through ``repro_torch.launch.train.run``:
-     gemma-7b at full width with 4 of its 28 layers, B = 2, S = 2048,
-     5 AdamW steps, bf16, remat, flash kernel on; with the launch counts
-     set to 0 just before and read just after;
+     the reference test matrices and at the shapes of the training paths,
+     and each autograd op's gradients against plain autograd;
+  2. checks each model on the card against itself with the kernels off
+     (gemma-7b smoke config with head_dim 64, and recurrentgemma-2b smoke;
+     fp32, S = 256: loss and gradients);
+  3. drives each training path through ``repro_torch.launch.train.run``,
+     5 AdamW steps at B = 2, S = 2048, bf16, remat, kernels on, with the
+     launch counts set to 0 just before and read just after:
+       - gemma-7b at full width with 4 of its 28 layers (flash attention);
+       - recurrentgemma-2b at full width with all 26 layers (rglru_scan);
   4. times each kernel, its plain version and the nearest PyTorch library
-     call at the main path's shape, beside the card's bound;
-  5. profiles one more training step (device time by kernel, idle share).
+     call at its path's shape, beside the card's bound;
+  5. profiles one more training step of each path (device time by kernel,
+     idle share).
 
 Each result is printed as it comes; the line before the card's name is one
 JSON object with the kernels, and the last line is
@@ -43,20 +47,26 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
-# The main path: gemma-7b at full width, 4 of its 28 layers.
-MAIN_ARGV = ["--arch", "gemma-7b", "--full", "--layers", "4", "--batch", "2",
-             "--seq", "2048", "--steps", "5", "--device", "cuda",
-             "--log-every", "1"]
-SLICE = (2, 2048, 16, 16, 256)          # b, s, h, kv, d at the main path
+COMMON_ARGV = ["--full", "--batch", "2", "--seq", "2048", "--steps", "5",
+               "--device", "cuda", "--log-every", "1"]
+# gemma-7b at full width, 4 of its 28 layers (params, grads and AdamW
+# moments of all 28 would take 137 GB).
+GEMMA_ARGV = ["--arch", "gemma-7b", "--layers", "4", *COMMON_ARGV]
+# recurrentgemma-2b at full width and depth: 26 layers, 46.3 GB of state.
+RG_ARGV = ["--arch", "recurrentgemma-2b", *COMMON_ARGV]
+SLICE = (2, 2048, 16, 16, 256)          # flash b, s, h, kv, d on its path
+RG_SHAPE = (2, 2048, 2560)              # rglru_scan (B, S, R) on its path
 # Profile groups, by kernel name (first match wins).
 KERNEL_GROUPS = [
     ("flash_attention", ("attn_fwd",)),
+    ("rglru_scan", ("rglru_scan",)),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass")),
     ("softmax/reduce", ("softmax", "reduce", "logsumexp")),
     ("copy/cast", ("copy",)),
     ("elementwise", ("elementwise",)),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SCAN_TOL = 3e-5     # the reference's tolerance for the RG-LRU scan
 
 
 class SmokeFailure(Exception):
@@ -103,15 +113,36 @@ def attention_pairs(s: int, t: int, causal: bool, window: int) -> int:
     return total
 
 
-def attention_bound(b, s, h, kv, d, t, dtype: str, causal=True, window=0):
+def bound(flops: float, nbytes: float, dtype: str):
     """(bound_ms, bound_by): the larger of FLOPs over peak and bytes over
-    memory rate; q, k, v read once and o written once."""
-    flops = 4 * b * h * d * attention_pairs(s, t, causal, window)
-    elem = 2 if dtype == "bfloat16" else 4
-    nbytes = elem * d * (2 * b * s * h + 2 * b * t * kv)
+    memory rate."""
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def attention_bound(b, s, h, kv, d, t, dtype: str, causal=True, window=0):
+    """q, k, v read once and o written once; 4 FLOPs a (pair, dim)."""
+    flops = 4 * b * h * d * attention_pairs(s, t, causal, window)
+    elem = 2 if dtype == "bfloat16" else 4
+    return bound(flops, elem * d * (2 * b * s * h + 2 * b * t * kv), dtype)
+
+
+def scan_bound(n, s, r, dtype: str):
+    """a, b read once and h written once; a multiply and an add in fp32 a
+    step."""
+    elem = 2 if dtype == "bfloat16" else 4
+    return bound(2 * n * s * r, 3 * elem * n * s * r, "float32")
+
+
+def check_close(label: str, out, want, tol: float) -> float:
+    diff = (out.float() - want.float()).abs()
+    err = diff.max().item()
+    ok = bool((diff <= tol * (1 + want.float().abs())).all())
+    print(f"{label}: max_abs_err {err:.3e} (tol {tol}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok and math.isfinite(err), f"{label}: kernel disagrees")
+    return err
 
 
 def main() -> int:
@@ -125,9 +156,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import build, flash_attention_fwd
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.ref import flash_attention_ref, rglru_scan_ref
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -136,21 +169,13 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # -- build --------------------------------------------------------------
+    # -- build: one nvcc per source, all started together -------------------
     t0 = time.time()
-    lib, log = build()
-    print(f"build: {lib.name} in {time.time() - t0:.1f} s")
-    name = None
-    for line in log.splitlines():   # one line per kernel instantiation
-        m = re.search(r"attn_fwdILi(\d+)E(f|13__nv_bfloat16)Lb([01])E", line)
-        if m:
-            name = (f"attn_fwd<D={m[1]}, {'fp32' if m[2] == 'f' else 'bf16'},"
-                    f" causal={m[3]}>")
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            print(f"  ptxas: {name}: {m[1]} registers")
-        if "spill" in line and not line.strip().startswith("0 bytes stack"):
-            print(f"  ptxas: {name}: {line.strip()}")
+    built = kbuild.build("flash_attention.cu", "rglru_scan.cu")
+    print(f"build: {', '.join(p.name for p, _ in built.values())} in "
+          f"{time.time() - t0:.1f} s")
+    for _, log in built.values():
+        print_ptxas(log)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -161,7 +186,16 @@ def main() -> int:
                 .to(dtypes[dtype]) for shape in
                 ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
 
-    # -- phase 1: kernel against its plain version --------------------------
+    def scan_inputs(shape, dtype="float32", rounded=False):
+        """The reference's inputs: a in (0.8, 1), b ~ 0.1 N(0, 1)."""
+        a = torch.sigmoid(torch.randn(shape, device="cuda",
+                                      generator=gen)) * 0.2 + 0.8
+        b = 0.1 * torch.randn(shape, device="cuda", generator=gen)
+        if rounded:
+            a, b = (x.bfloat16().float() for x in (a, b))
+        return a.to(dtypes[dtype]), b.to(dtypes[dtype])
+
+    # -- phase 1a: flash kernel against its plain version -------------------
     cases = [(shape, dt, True, 0, None)
              for shape in [(1, 128, 1, 1, 64), (2, 256, 4, 2, 64),
                            (1, 512, 8, 8, 128), (2, 384, 6, 2, 64),
@@ -180,16 +214,12 @@ def main() -> int:
         out = flash_attention_fwd(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = flash_attention_ref(q, k, v, causal=causal, window=window)
-        diff = (out.float() - want.float()).abs()
-        err = diff.max().item()
-        ok = bool((diff <= TOL[dt] * (1 + want.float().abs())).all())
-        print(f"kernel-vs-plain {shape} t={t or shape[1]} {dt} "
-              f"causal={causal} window={window}: max_abs_err {err:.3e} "
-              f"(tol {TOL[dt]}) {'ok' if ok else 'FAIL'}", flush=True)
-        require(ok and math.isfinite(err), f"kernel disagrees at {shape} {dt}")
+        err = check_close(f"flash kernel-vs-plain {shape} t={t or shape[1]} "
+                          f"{dt} causal={causal} window={window}", out, want,
+                          TOL[dt])
         if (shape, dt) == (SLICE, "bfloat16"):
             slice_err = err
-        del q, k, v, out, want, diff
+        del q, k, v, out, want
 
     # the autograd op on CUDA tensors: kernel forward, reference backward
     q, k, v = (x.requires_grad_() for x in inputs(1, 256, 2, 2, 64,
@@ -203,19 +233,165 @@ def main() -> int:
         x.grad = None
     (flash_attention_ref(q, k, v, True, 0) ** 2).sum().backward()
     gerr = max((a - x.grad).abs().max().item() for a, x in zip(grads, (q, k, v)))
-    print(f"op gradients vs plain autograd: max_abs_err {gerr:.3e} (tol 1e-4)")
-    require(gerr <= 1e-4, "op gradients disagree")
+    print(f"flash op gradients vs plain autograd: max_abs_err {gerr:.3e} "
+          f"(tol 1e-4)")
+    require(gerr <= 1e-4, "flash op gradients disagree")
 
-    # -- phase 2: the model on the card, kernel on vs off -------------------
+    # -- phase 1b: rglru_scan kernel against its plain version --------------
+    scan_cases = [(shape, "float32", rounded)
+                  for shape in [(1, 256, 128), (2, 512, 256), (3, 256, 384)]
+                  for rounded in (False, True)]
+    scan_cases += [((2, 512, 256), "bfloat16", False),
+                   (RG_SHAPE, "float32", False)]
+    rg_err = None
+    for shape, dt, rounded in scan_cases:
+        a, b = scan_inputs(shape, dt, rounded)
+        out = rglru_scan_fwd(a, b)
+        torch.cuda.synchronize()
+        tol = SCAN_TOL if dt == "float32" else TOL[dt]
+        err = check_close(f"rglru kernel-vs-plain {shape} {dt}"
+                          f"{' bf16-rounded' if rounded else ''}", out,
+                          rglru_scan_ref(a, b), tol)
+        if shape == RG_SHAPE:
+            rg_err = err
+    a, b = scan_inputs((2, 2, 256, 128))                 # leading dims
+    check_close("rglru op-vs-plain (2, 2, 256, 128) float32",
+                ops.rglru_scan(a, b), rglru_scan_ref(a, b), SCAN_TOL)
+    a = torch.full((1, 2048, 64), 0.99, device="cuda")   # decay stability
+    h = rglru_scan_fwd(a, torch.full_like(a, 0.01))
+    check_close("rglru kernel-vs-plain (1, 2048, 64) decay", h,
+                rglru_scan_ref(a, torch.full_like(a, 0.01)), SCAN_TOL)
+    require(h.abs().max().item() < 2.0, "rglru scan is not bounded")
+
+    # the autograd op on CUDA tensors: kernel forward and adjoint
+    a, b = scan_inputs((1, 256, 128))
+    a = (a * 0.5).requires_grad_()
+    b = b.requires_grad_()
+    before = rglru_scan_fwd.launches
+    (ops.rglru_scan(a, b) ** 2).sum().backward()
+    require(rglru_scan_fwd.launches == before + 2,
+            "ops.rglru_scan did not launch the kernel forward and backward")
+    grads = [a.grad.clone(), b.grad.clone()]
+    a.grad = b.grad = None
+    (rglru_scan_ref(a, b) ** 2).sum().backward()
+    gerr = max((g - x.grad).abs().max().item()
+               for g, x in zip(grads, (a, b)))
+    print(f"rglru op gradients (a and b) vs plain autograd: max_abs_err "
+          f"{gerr:.3e} (tol 1e-4)")
+    require(gerr <= 1e-4, "rglru op gradients disagree")
+    del a, b, h, out, grads
+
+    # -- phase 2: the models on the card, kernels on vs off -----------------
+    # head_dim 64: the flash kernel is built for head widths 64, 128, 256
+    model_on_off("gemma-7b", head_dim=64)
+    model_on_off("recurrentgemma-2b")
+
+    # -- phase 3: the training paths ----------------------------------------
+    counters = {"flash_attention": flash_attention_fwd,
+                "rglru_scan": rglru_scan_fwd}
+    gemma = drive("gemma-7b", GEMMA_ARGV, counters)
+    require(gemma["launches"]["flash_attention"]
+            == gemma["per_step"]["attn"] * gemma["steps"],
+            "flash kernel launch count is off on the gemma-7b path")
+    rg = drive("recurrentgemma-2b", RG_ARGV, counters)
+    require(rg["launches"]["rglru_scan"]
+            == rg["per_step"]["rglru"] * rg["steps"],
+            "rglru_scan kernel launch count is off on the recurrentgemma "
+            "path")
+
+    # -- phase 4: timings at each kernel's path shape -----------------------
+    import torch.nn.functional as F
+    saved = {k: c.launches for k, c in counters.items()}
+    b_, s_, h_, kv_, d_ = SLICE
+    q, k, v = inputs(b_, s_, h_, kv_, d_, "bfloat16")
+    fa_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v), iters=20)
+    fa_plain = cuda_ms(lambda: flash_attention_ref(q, k, v), iters=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    fa_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=20)
+    fa_bound, fa_by = attention_bound(b_, s_, h_, kv_, d_, s_, "bfloat16")
+    print(f"flash_attention at {SLICE} bf16 causal: kernel {fa_ms:.3f} ms, "
+          f"plain {fa_plain:.3f} ms, sdpa {fa_lib:.3f} ms, bound "
+          f"{fa_bound:.4f} ms ({fa_by})", flush=True)
+    del q, k, v, qt, kt, vt
+
+    a, b = scan_inputs(RG_SHAPE)
+    rg_ms = cuda_ms(lambda: rglru_scan_fwd(a, b), iters=50)
+    rg_plain = cuda_ms(lambda: rglru_scan_ref(a, b), iters=3, warmup=1)
+    rg_bound, rg_by = scan_bound(*RG_SHAPE, "float32")
+    print(f"rglru_scan at {RG_SHAPE} fp32: kernel {rg_ms:.4f} ms, plain "
+          f"{rg_plain:.3f} ms, bound {rg_bound:.4f} ms ({rg_by}); library: "
+          f"none (no single PyTorch call computes a linear recurrence)",
+          flush=True)
+    del a, b
+    for name, c in counters.items():
+        c.launches = saved[name]
+
+    # -- phase 5: device time of one training step of each path -------------
+    profile_step(gemma)
+    profile_step(rg)
+
+    kernels = [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29",
+        "launches": gemma["launches"]["flash_attention"],
+        "max_abs_err": slice_err,
+        "ms": fa_ms,
+        "plain_ms": fa_plain,
+        "bound_ms": fa_bound,
+        "bound_by": fa_by,
+        "library_ms": fa_lib,
+    }, {
+        "name": "rglru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:25",
+        "launches": rg["launches"]["rglru_scan"],
+        "max_abs_err": rg_err,
+        "ms": rg_ms,
+        "plain_ms": rg_plain,
+        "bound_ms": rg_bound,
+        "bound_by": rg_by,
+        "library_ms": None,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def print_ptxas(log: str) -> None:
+    """Registers and spills of each kernel instantiation, from -Xptxas=-v."""
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?((attn_fwd|"
+                      r"rglru_scan_kernel)I\w+?)EEv", line)
+        if m:
+            name = m[1]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            print(f"  ptxas: {name}: {m[1]} registers")
+        if "spill" in line and not line.strip().startswith("0 bytes stack"):
+            print(f"  ptxas: {name}: {line.strip()}")
+
+
+def model_on_off(arch: str, **overrides) -> None:
+    """The smoke model on the card with its kernels on and off (fp32,
+    S = 256, remat on): loss and every gradient agree."""
+    import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.tree import leaves
-    # head_dim 64: the kernel is built for head widths 64, 128 and 256
-    cfg = get_config("gemma-7b", smoke=True).replace(
-        head_dim=64, use_flash_kernel=True, remat=True)
+    cfg = get_config(arch, smoke=True).replace(remat=True, **overrides)
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(1), cfg)
-    toks = torch.randint(0, cfg.vocab, (2, 257), device="cuda", generator=gen)
+    toks = torch.randint(0, cfg.vocab, (2, 257), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     res = {}
     for flag in (True, False):
@@ -226,112 +402,98 @@ def main() -> int:
     lerr = abs(res[True][0] - res[False][0]) / abs(res[False][0])
     gerr = max((a - b).abs().max().item()
                for a, b in zip(res[True][1], res[False][1]))
-    print(f"model (gemma-7b smoke, head_dim 64, fp32, S=256) flash vs naive: loss "
-          f"{res[True][0]:.6f} vs {res[False][0]:.6f} (rel {lerr:.2e}, "
-          f"tol 1e-5), grads max_abs_err {gerr:.2e} (tol 1e-4)")
-    require(lerr <= 1e-5 and gerr <= 1e-4, "model flash path disagrees")
-    del params, res, batch
+    print(f"model ({arch} smoke {overrides or ''}, fp32, S=256) kernels on "
+          f"vs off: loss {res[True][0]:.6f} vs {res[False][0]:.6f} (rel "
+          f"{lerr:.2e}, tol 1e-5), grads max_abs_err {gerr:.2e} (tol 1e-4)",
+          flush=True)
+    require(lerr <= 1e-5 and gerr <= 1e-4, f"{arch}: kernel path disagrees")
 
-    # -- phase 3: the main path --------------------------------------------
+
+def drive(label: str, argv, counters) -> dict:
+    """One training path through ``train.run`` with the kernels on; every
+    launch count is set to 0 just before and read just after."""
+    import torch
     from repro_torch.launch import train
-    args = train.build_argparser().parse_args(MAIN_ARGV)
+    args = train.build_argparser().parse_args(argv)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_fwd.launches = 0
+    for c in counters.values():
+        c.launches = 0
     result = train.run(args, use_flash_kernel=True)
-    launches = flash_attention_fwd.launches
+    launches = {k: c.launches for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    mcfg = result["config"]
-    per_step = mcfg.n_layers * (2 if mcfg.remat else 1)
+    cfg = result["config"]
+    kinds = [k for _ in range(cfg.n_groups) for k in cfg.pattern] \
+        + list(cfg.tail_pattern)
+    in_groups = cfg.n_groups * len(cfg.pattern)
+
+    def calls(kind_set, backward: int) -> int:
+        """Kernel calls a step: forward, remat recompute inside the
+        groups, and ``backward`` per layer."""
+        n = sum(k in kind_set for k in kinds)
+        recompute = sum(k in kind_set for k in kinds[:in_groups]) \
+            if cfg.remat else 0
+        return n + recompute + backward * n
+    # flash attention: forward only (the VJP is the plain reference), and
+    # only where there is no window; rglru_scan: forward and adjoint
+    per_step = {"attn": calls({"attn"}, 0), "rglru": calls({"rglru"}, 1)}
     step_ms = [1e3 * s for s in result["step_seconds"]]
     steady = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
     tokens = args.batch * args.seq
-    print(f"main path: {mcfg.name} d_model {mcfg.d_model} heads "
-          f"{mcfg.n_heads}x{mcfg.head_dim} kv {mcfg.n_kv} d_ff {mcfg.d_ff} "
-          f"vocab {mcfg.vocab} layers {mcfg.n_layers} dtype {mcfg.dtype} "
-          f"remat {mcfg.remat} flash {mcfg.use_flash_kernel}")
-    print("main path losses: " + " ".join(f"{x:.4f}" for x in result["losses"]))
-    print("main path ms/step: " + " ".join(f"{x:.1f}" for x in step_ms)
-          + f" (median after the first {steady:.1f})")
     # model FLOPs of a step: 6 N T for the parameter matmuls (N includes the
     # tied head) plus forward + backward attention; remat recompute excluded
     n_params = result["param_count"]
-    attn = 3 * mcfg.n_layers * 4 * args.batch * mcfg.n_heads \
-        * mcfg.head_dim * attention_pairs(args.seq, args.seq, True, 0)
+    attn = 0
+    for kind in kinds:
+        if kind in ("attn", "local"):
+            w = cfg.window if kind == "local" else 0
+            attn += 3 * 4 * args.batch * cfg.n_heads * cfg.head_dim \
+                * attention_pairs(args.seq, args.seq, True, w)
     flops = 6 * n_params * tokens + attn
-    print(f"main path params {n_params} model FLOPs/step {flops:.4e} "
+    print(f"{label} path: d_model {cfg.d_model} heads {cfg.n_heads}x"
+          f"{cfg.head_dim} kv {cfg.n_kv} d_ff {cfg.d_ff} rnn "
+          f"{cfg.rnn_width} vocab {cfg.vocab} layers {cfg.n_layers} "
+          f"({' '.join(kinds)}) dtype {cfg.dtype} remat {cfg.remat} "
+          f"kernels {cfg.use_flash_kernel}")
+    print(f"{label} losses: " + " ".join(f"{x:.4f}" for x in result["losses"]))
+    print(f"{label} ms/step: " + " ".join(f"{x:.1f}" for x in step_ms)
+          + f" (median after the first {steady:.1f})")
+    print(f"{label} params {n_params} model FLOPs/step {flops:.4e} "
           f"achieved {flops / steady / 1e9:.1f} TFLOP/s "
           f"({flops / steady / 1e9 / (PEAK_FLOPS['bfloat16'] / 1e12):.3f}"
           f" of the bf16 peak)")
-    print(f"main path tokens/s: {tokens / steady * 1e3:.1f}  peak memory "
-          f"{peak / 2**30:.2f} GiB  flash launches {launches} "
-          f"(expected {per_step} x {args.steps})", flush=True)
+    print(f"{label} tokens/s: {tokens / steady * 1e3:.1f}  peak memory "
+          f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)  launches "
+          + ", ".join(f"{k} {n}" for k, n in launches.items())
+          + f" (expected a step: flash_attention {per_step['attn']}, "
+          f"rglru_scan {per_step['rglru']}; x {args.steps} steps)",
+          flush=True)
     require(all(math.isfinite(x) for x in result["losses"]),
-            "non-finite loss on the main path")
-    require(launches == per_step * args.steps,
-            f"flash kernel launched {launches} times, expected "
-            f"{per_step * args.steps}")
-    del result
-
-    # -- phase 4: timings at the main path's attention shape ----------------
-    import torch.nn.functional as F
-    b, s, h, kv, d = SLICE
-    q, k, v = inputs(b, s, h, kv, d, "bfloat16")
-    saved = flash_attention_fwd.launches
-    k_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v), iters=20)
-    p_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), iters=5)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters=20)
-    flash_attention_fwd.launches = saved
-    bound, bound_by = attention_bound(b, s, h, kv, d, s, "bfloat16")
-    print(f"flash_attention at {SLICE} bf16 causal: kernel {k_ms:.3f} ms, "
-          f"plain {p_ms:.3f} ms, sdpa {l_ms:.3f} ms, bound {bound:.4f} ms "
-          f"({bound_by})", flush=True)
-    del q, k, v, qt, kt, vt
-
-    # -- phase 5: device time of one training step, by kernel ---------------
-    profile_step(args)
-
-    kernels = [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:29",
-        "launches": launches,
-        "max_abs_err": slice_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "library_ms": l_ms,
-    }]
-    print(json.dumps({"kernels": kernels}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+            f"non-finite loss on the {label} path")
+    return {"label": label, "args": args, "config": cfg,
+            "launches": launches, "per_step": per_step,
+            "steps": args.steps}
 
 
-def profile_step(args) -> None:
-    """Device time of one steady training step of the main path, by kernel,
-    and the share of the step's host wall time the device was idle (the
+def profile_step(path: dict) -> None:
+    """Device time of one steady training step of a path, by kernel, and
+    the share of the step's host wall time the device was idle (the
     profiler's own host cost makes that share an upper bound)."""
     import warnings
 
     import torch
     from torch.profiler import ProfilerActivity, profile
     warnings.filterwarnings("ignore", message=".*Profiler clears events")
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_optimizer_name
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init_params
     from repro_torch.optim import make_optimizer
 
-    cfg = get_config(args.arch, smoke=args.smoke).replace(
-        n_layers=args.layers, use_flash_kernel=True)
-    opt = make_optimizer(args.optimizer or "adamw", lr=args.lr)
+    args, cfg, label = path["args"], path["config"], path["label"]
+    torch.cuda.empty_cache()
+    opt = make_optimizer(args.optimizer or get_optimizer_name(args.arch),
+                         lr=args.lr)
     data = SyntheticLM(cfg, args.batch, args.seq, seed=args.seed)
     params = init_params(
         torch.Generator(device="cuda").manual_seed(args.seed), cfg)
@@ -353,27 +515,28 @@ def profile_step(args) -> None:
         step()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
+    del params, state
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     if busy <= 0:
-        print("profile of one step: no device time in the trace "
+        print(f"{label} profile of one step: no device time in the trace "
               "(not measured)")
         return
-    print(f"profile of one step: wall {wall_ms:.1f} ms, device busy "
+    print(f"{label} profile of one step: wall {wall_ms:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     groups = {}
     for name, ms, _ in rows:
         cat = next((c for c, keys in KERNEL_GROUPS if any(
             key in name for key in keys)), "other")
         groups[cat] = groups.get(cat, 0.0) + ms
-    print("profile by group: " + ", ".join(
+    print(f"{label} profile by group: " + ", ".join(
         f"{c} {ms:.1f} ms ({ms / busy:.3f})"
         for c, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
     for name, ms, n in rows[:15]:
-        print(f"  {ms:9.2f} ms {n:5d}x  {name[:110]}")
+        print(f"  {ms:9.2f} ms {n:5d}x  {name[:110]}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,9 @@
-"""Hopper flash-attention forward: build, bind and launch the CUDA kernel.
+"""Hopper flash-attention forward: bind and launch the CUDA kernel.
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention_fwd`` (the
 Pallas TPU kernel ``_attn_kernel``). The kernel source is
 ``csrc/flash_attention.cu``; its header says what bounds it and how it is
-laid out on the card.
-
-The source is compiled with ``nvcc`` into a shared library with a plain C
-interface at the first CUDA call, into ``build/`` at the repo root, and
-bound with ``ctypes``: no PyTorch headers, so the build takes seconds. The
-library's name carries a hash of the source and flags, so an edited source
-is rebuilt. Importing this module needs neither ``nvcc`` nor a card.
+laid out on the card. ``build.py`` compiles it at the first CUDA call.
 
 ``flash_attention_fwd`` takes CUDA tensors only and launches the kernel or
 raises; the plain version for CPU tensors is ``ref.flash_attention_ref``,
@@ -19,19 +13,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Tuple
 
 import torch
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+from . import build as _build
+
+SOURCE = "flash_attention.cu"
 HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,39 +31,9 @@ def check_blocks(s: int, t: int, block_q: int = 128,
         raise ValueError(f"seq lens ({s},{t}) must divide blocks ({bq},{bk})")
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the flash-attention kernel is "
-                           "built from source at first use")
-    return nvcc
-
-
-def build() -> Tuple[Path, str]:
-    """Compile the kernel if its library is missing.
-
-    Returns the library's path and the compiler's output ("" when the
-    library was already built).
-    """
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libflash_attention_{tag}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
-    return lib, res.stdout + res.stderr
-
-
 @functools.lru_cache(maxsize=None)
 def _load() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+    lib = _build.load(SOURCE)
     lib.flash_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.flash_attention_fwd.restype = ctypes.c_int

@@ -1,9 +1,11 @@
 """Public op wrappers around the hand-written kernels.
 
-``flash_attention`` is a ``torch.autograd.Function``. Its forward launches
-the CUDA kernel for CUDA tensors and runs the plain version for CPU tensors;
-there is no other path. As in ``repro.kernels.ops``, the backward pass is
-the VJP of the plain reference, recomputed from the saved (q, k, v).
+Each op is a ``torch.autograd.Function``. Its forward launches the CUDA
+kernel for CUDA tensors and runs the plain version for CPU tensors; there
+is no other path. The backward passes follow ``repro.kernels.ops``:
+``flash_attention`` differentiates the plain reference, recomputed from the
+saved (q, k, v); ``rglru_scan`` runs the reverse-time adjoint recurrence,
+which is the same recurrence on flipped inputs and so the same kernel.
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import torch
 
 from . import ref
 from .flash_attention import check_blocks, flash_attention_fwd
+from .rglru_scan import check_blocks as rglru_check_blocks
+from .rglru_scan import rglru_scan_fwd
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -40,3 +44,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, S, H, D); k, v: (B, T, Kv, D). Returns (B, S, H, D) in q.dtype."""
     return _FlashAttention.apply(q, k, v, causal, window)
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The recurrence over axis -2 of (..., S, R), flattened to (N, S, R):
+    the kernel on the card, else the plain version on the CPU."""
+    s, r = a.shape[-2:]
+    a3 = a.reshape(-1, s, r).contiguous()
+    b3 = b.reshape(-1, s, r).contiguous()
+    if a.device.type == "cuda":
+        return rglru_scan_fwd(a3, b3).reshape(b.shape)
+    if a.device.type != "cpu":
+        raise ValueError(f"rglru_scan: unsupported device {a.device}")
+    rglru_check_blocks(s, r)
+    return ref.rglru_scan_ref(a3, b3).reshape(b.shape)
+
+
+class _RglruScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        # reverse-time adjoint of the linear recurrence:
+        #   lam_t = g_t + a_{t+1} lam_{t+1};  db = lam;  da_t = lam_t h_{t-1}
+        a, h = ctx.saved_tensors
+        a_next = torch.cat([a[..., 1:, :], torch.zeros_like(a[..., :1, :])],
+                           dim=-2)
+        lam = _scan(a_next.flip(-2), g.to(a.dtype).flip(-2)).flip(-2)
+        h_prev = torch.cat([torch.zeros_like(h[..., :1, :]), h[..., :-1, :]],
+                           dim=-2)
+        return lam * h_prev, lam
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t over axis -2; a, b: (..., S, R).
+
+    Returns h in b's dtype, with an fp32 carry."""
+    return _RglruScan.apply(a, b)

@@ -38,3 +38,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", w, vf)
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Linear recurrence h_t = a_t * h_{t-1} + b_t over axis -2, zero init.
+
+    a, b: (..., S, R). The carry is fp32 (a multiply, then an add); returns
+    h: (..., S, R) in b's dtype. Differentiable with autograd.
+    """
+    af, bf = a.float(), b.float()
+    h = torch.zeros_like(bf[..., 0, :])
+    out = []
+    for t in range(a.shape[-2]):
+        h = af[..., t, :] * h + bf[..., t, :]
+        out.append(h)
+    return torch.stack(out, dim=-2).to(b.dtype)

@@ -1,0 +1,92 @@
+"""Recurrent sequence-mixing blocks (PyTorch): the RG-LRU of
+Griffin/RecurrentGemma, for training over a full sequence.
+
+The port of the RG-LRU part of ``repro.models.recurrent``: ``init_rglru``,
+``_rglru_coeffs``, ``_causal_conv`` and ``apply_rglru``, with the same
+parameter keys and layouts. The recurrence runs through the hand-written
+kernel (``kernels.ops.rglru_scan``) when ``cfg.use_flash_kernel`` and
+S >= 256, else through the plain version, which computes what the JAX
+package's ``associative_scan`` computes. The decode step (``step_rglru``)
+and the xLSTM blocks are not ported yet (ROADMAP 1.7 and 1.9).
+
+JAX promotes a bf16 activation multiplied by an fp32 weight to fp32;
+``torch.einsum`` refuses mixed types, so the gate products cast the
+activation to fp32 explicitly and compute what JAX computes.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ref import rglru_scan_ref
+from .config import ModelConfig
+from .layers import Params, dense_init
+
+_RGLRU_C = 8.0
+
+
+def init_rglru(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d, r = cfg.d_model, cfg.rnn_width
+    dev = gen.device
+    # Λ init so that a = sigmoid(lam)^c spreads over [0.9, 0.999]
+    u = 0.9 + 0.099 * torch.rand((r,), generator=gen, device=dev)
+    lam = torch.log(torch.exp(-torch.log(u) / _RGLRU_C) - 1.0)  # softplus^-1
+    return {
+        "rg_in": {"wx": dense_init(gen, (d, r)),      # recurrence branch
+                  "wy": dense_init(gen, (d, r))},     # gate branch
+        "rg_gates": {"wa": dense_init(gen, (r, r)),   # recurrence gate
+                     "wi": dense_init(gen, (r, r))},  # input gate
+        "rg_lambda": lam,
+        "conv": torch.randn((cfg.conv_width, r), generator=gen,
+                            device=dev) * 0.1,
+        "rg_out": {"wo": dense_init(gen, (r, d))},
+    }
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """Exact softplus, as ``jax.nn.softplus`` (``F.softplus`` returns x
+    above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _rglru_coeffs(p: Params, u: torch.Tensor):
+    """u: (..., r) pre-activation inputs -> (a, b) recurrence coefficients,
+    both fp32."""
+    uf = u.float()
+    rgate = torch.sigmoid(torch.einsum("...r,rk->...k", uf,
+                                       p["rg_gates"]["wa"]))
+    igate = torch.sigmoid(torch.einsum("...r,rk->...k", uf,
+                                       p["rg_gates"]["wi"]))
+    log_a = -_RGLRU_C * _softplus(p["rg_lambda"]) * rgate
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * igate * uf
+    return a, b
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv from a zero state. x: (B,S,R), w: (W,R).
+
+    Runs in x's dtype: the W shifted products are added in order from 0."""
+    width, s = w.shape[0], x.shape[-2]
+    pad = torch.zeros(x.shape[:-2] + (width - 1, x.shape[-1]),
+                      dtype=x.dtype, device=x.device)
+    xp = torch.cat([pad, x], dim=-2)
+    return sum(xp[..., i:i + s, :] * w[i].to(x.dtype) for i in range(width))
+
+
+def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d). Zero initial state."""
+    dt = x.dtype
+    u = torch.einsum("...d,dr->...r", x, p["rg_in"]["wx"].to(dt))
+    gate = F.gelu(torch.einsum("...d,dr->...r", x, p["rg_in"]["wy"].to(dt)),
+                  approximate="tanh")
+    u = _causal_conv(u, p["conv"])
+    a, b = _rglru_coeffs(p, u)
+    if cfg.use_flash_kernel and x.shape[1] >= 256:
+        from repro_torch.kernels.ops import rglru_scan
+        h = rglru_scan(a, b)
+    else:
+        h = rglru_scan_ref(a, b)
+    h = h.to(dt) * gate
+    return torch.einsum("...r,rd->...d", h, p["rg_out"]["wo"].to(dt))

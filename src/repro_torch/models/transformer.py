@@ -1,4 +1,5 @@
-"""The unified LM: init / forward / loss, ``attn`` blocks (PyTorch).
+"""The unified LM: init / forward / loss, ``attn``, ``local`` and ``rglru``
+blocks (PyTorch).
 
 The port of ``repro.models.transformer``. The layer stack is a loop over
 repeating pattern groups whose parameters are stacked on axis 0 under
@@ -6,8 +7,9 @@ repeating pattern groups whose parameters are stacked on axis 0 under
 With ``cfg.remat`` each group runs under ``torch.utils.checkpoint``, the
 counterpart of ``jax.checkpoint`` with ``nothing_saveable``.
 
-Only the ``attn`` block kind is ported so far; every other kind raises
-``NotImplementedError`` naming its ROADMAP item.
+The ``attn``, ``local`` (sliding-window attention) and ``rglru`` block
+kinds are ported so far; every other kind raises ``NotImplementedError``
+naming its ROADMAP item.
 
 Public API:
   init_params(gen, cfg)            parameter dict on ``gen.device``
@@ -23,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.tree import leaves, tree_map
+from . import recurrent as rec
 from .config import ModelConfig
 from .layers import (Params, _weak, apply_mlp, apply_norm, attention_block,
                      dense_init, dtype_of, embed_init, init_attention,
@@ -32,8 +35,6 @@ Batch = Dict[str, torch.Tensor]
 
 # Block kinds still to port, with the ROADMAP.md module item that ports them.
 _UNPORTED = {
-    "local": "ROADMAP 1.8 (recurrentgemma-2b: local attention)",
-    "rglru": "ROADMAP 1.8 (recurrentgemma-2b: RG-LRU)",
     "slstm": "ROADMAP 1.9 (xlstm-350m)",
     "mlstm": "ROADMAP 1.9 (xlstm-350m)",
     "moe": "ROADMAP 1.10 (deepseek-moe-16b, arctic-480b)",
@@ -55,8 +56,11 @@ def _check_kind(kind: str) -> None:
 
 def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
     _check_kind(kind)
-    p: Params = {"norm1": init_norm(cfg, gen.device),
-                 "attn": init_attention(gen, cfg)}
+    p: Params = {"norm1": init_norm(cfg, gen.device)}
+    if kind in ("attn", "local"):
+        p["attn"] = init_attention(gen, cfg)
+    if kind == "rglru":
+        p["rglru"] = rec.init_rglru(gen, cfg)
     if cfg.d_ff:
         p["norm2"] = init_norm(cfg, gen.device)
         p["mlp"] = init_mlp(gen, cfg)
@@ -72,9 +76,14 @@ def _apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     _check_kind(kind)
     aux = _zero_aux(x.device)
-    x = x + attention_block(p["attn"], apply_norm(p["norm1"], x, cfg),
-                            cfg, positions, window=0,
-                            use_rope=(cfg.rope_theta > 0))
+    if kind in ("attn", "local"):
+        w = cfg.window if kind == "local" else 0
+        x = x + attention_block(p["attn"], apply_norm(p["norm1"], x, cfg),
+                                cfg, positions, window=w,
+                                use_rope=(cfg.rope_theta > 0))
+    if kind == "rglru":
+        x = x + rec.apply_rglru(p["rglru"], apply_norm(p["norm1"], x, cfg),
+                                cfg)
     if "mlp" in p:
         x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
     return x, aux

@@ -1,6 +1,7 @@
-"""The port's flash-attention op (plain path on the CPU) against the JAX
-package's Pallas kernel in interpret mode: the ``test_kernels.py`` matrix,
-T > S, gradients, and the wrapper's refusals. Inputs come from numpy."""
+"""The port's kernel ops (plain path on the CPU) against the JAX package's
+Pallas kernels in interpret mode: flash attention and the RG-LRU scan over
+the ``test_kernels.py`` matrices, gradients, and the wrappers' refusals.
+Inputs come from numpy."""
 import importlib
 
 import jax
@@ -11,8 +12,11 @@ import torch
 
 from repro.kernels import ref as jax_ref
 from repro.kernels.ops import flash_attention as jax_flash
-from repro_torch.kernels import flash_attention
-from repro_torch.kernels.flash_attention import build, flash_attention_fwd
+from repro.kernels.ops import rglru_scan as jax_rglru_scan
+from repro_torch.kernels import flash_attention, rglru_scan
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan import rglru_scan_fwd
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -113,11 +117,105 @@ def test_op_refuses_other_devices():
         flash_attention(q, q, q, True, 0)
 
 
-def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    # the package attribute is the op; the module is reached by its name
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    monkeypatch.setattr(fa, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(fa.shutil, "which", lambda name: None)
-    monkeypatch.setattr(fa.os.path, "exists", lambda path: False)
+@pytest.mark.parametrize("module", ["flash_attention", "rglru_scan"])
+def test_build_without_nvcc_raises(module, monkeypatch, tmp_path):
+    # the package attributes are the ops; the modules are reached by name
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    build = importlib.import_module("repro_torch.kernels.build")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build()
+        build.build(mod.SOURCE)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan
+# ---------------------------------------------------------------------------
+
+RG_TOL = 3e-5
+
+
+def scan_inputs(shape, bf16_rounded=False, seed=11):
+    """The ``TestRglruScan`` inputs: a in (0.8, 1), b ~ 0.1 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    a = (1 / (1 + np.exp(-rng.standard_normal(shape))) * 0.2 + 0.8)
+    b = 0.1 * rng.standard_normal(shape)
+    a, b = (torch.from_numpy(x.astype(np.float32)) for x in (a, b))
+    if bf16_rounded:
+        a, b = (x.bfloat16().float() for x in (a, b))
+    return a, b
+
+
+def check_scan(a, b):
+    want = np.asarray(jax_rglru_scan(jnp.asarray(a.numpy()),
+                                     jnp.asarray(b.numpy())))
+    got = rglru_scan(a, b)
+    assert got.dtype == b.dtype and got.shape == b.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=RG_TOL, rtol=RG_TOL)
+    return got
+
+
+@pytest.mark.parametrize("b,s,r", [(1, 256, 128), (2, 512, 256),
+                                   (3, 256, 384)])
+@pytest.mark.parametrize("bf16_rounded", [False, True])
+def test_rglru_scan_sweep(b, s, r, bf16_rounded):
+    check_scan(*scan_inputs((b, s, r), bf16_rounded))
+
+
+def test_rglru_scan_leading_dims():
+    check_scan(*scan_inputs((2, 2, 256, 128)))
+
+
+def test_rglru_scan_decay_stability():
+    """|a| < 1 keeps h bounded over long sequences."""
+    a = torch.full((1, 2048, 64), 0.99)
+    h = check_scan(a, torch.full((1, 2048, 64), 0.01))
+    assert float(h.abs().max()) < 2.0
+
+
+def test_rglru_scan_grads_match_jax():
+    a, b = scan_inputs((1, 256, 128))
+    a = a * 0.5
+
+    def f(a, b):
+        return jnp.sum(jax_rglru_scan(a, b) ** 2)
+
+    want = jax.grad(f, argnums=(0, 1))(jnp.asarray(a.numpy()),
+                                       jnp.asarray(b.numpy()))
+    a, b = (x.requires_grad_() for x in (a, b))
+    (rglru_scan(a, b) ** 2).sum().backward()
+    for got, w in zip((a.grad, b.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_rglru_plain_reference_matches_jax_reference():
+    a, b = scan_inputs((2, 64, 32))
+    want = jax_ref.rglru_scan_ref(jnp.asarray(a.numpy()),
+                                  jnp.asarray(b.numpy()))
+    np.testing.assert_allclose(rglru_scan_ref(a, b).numpy(), np.asarray(want),
+                               atol=RG_TOL, rtol=RG_TOL)
+
+
+@pytest.mark.parametrize("s,r", [(300, 128), (256, 200)])
+def test_rglru_undividable_raises_like_jax(s, r):
+    a, b = scan_inputs((1, s, r))
+    with pytest.raises(ValueError, match="must divide blocks"):
+        jax_rglru_scan(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()))
+    with pytest.raises(ValueError, match="must divide blocks"):
+        rglru_scan(a, b)
+
+
+def test_rglru_kernel_wrapper_refuses_cpu_tensors():
+    a, b = scan_inputs((1, 256, 128))
+    before = rglru_scan_fwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan_fwd(a, b)
+    assert rglru_scan_fwd.launches == before
+
+
+def test_rglru_op_refuses_other_devices():
+    a = torch.empty((1, 256, 128), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rglru_scan(a, a)

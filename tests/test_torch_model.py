@@ -87,7 +87,8 @@ def test_pad_vocab_masked():
     assert pad.max() < real.max() - 1e6
 
 
-@pytest.mark.parametrize("arch", ["gemma-7b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["gemma-7b", "granite-8b",
+                                  "recurrentgemma-2b"])
 def test_init_layout_matches_jax(arch):
     """Same keys, shapes and dtypes as the JAX pytree; leaves need grad."""
     cfg = get_config(arch, smoke=True)
@@ -113,7 +114,6 @@ def test_params_round_trip():
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "arctic-480b",
                                   "whisper-small", "xlstm-350m",
-                                  "recurrentgemma-2b",
                                   "llama-3.2-vision-90b"])
 def test_unported_block_kinds_raise(arch):
     cfg = get_config(arch, smoke=True)

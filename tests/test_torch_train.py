@@ -27,7 +27,8 @@ def numpy_batches(vocab, n, b, s, seed=5):
     return [rng.integers(0, vocab, (b, s + 1)) for _ in range(n)]
 
 
-@pytest.mark.parametrize("arch", ["gemma-7b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["gemma-7b", "granite-8b",
+                                  "recurrentgemma-2b"])
 def test_five_adamw_steps_track_jax(arch):
     jc = jax_config(arch, smoke=True)
     tc = get_config(arch, smoke=True)
@@ -109,8 +110,9 @@ def test_run_on_cpu_ends_finite():
     assert all(np.isfinite(res["losses"]))
 
 
-def test_run_overrides_reach_the_config():
-    res = train.run(args(steps=1, seq=256), use_flash_kernel=True)
+@pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b"])
+def test_run_overrides_reach_the_config(arch):
+    res = train.run(args(arch=arch, steps=1, seq=256), use_flash_kernel=True)
     assert res["config"].use_flash_kernel and np.isfinite(res["last_loss"])
 
 
