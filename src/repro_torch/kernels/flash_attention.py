@@ -3,7 +3,10 @@
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention_fwd`` (the
 Pallas TPU kernel ``_attn_kernel``). The kernel source is
 ``csrc/flash_attention.cu``; its header says what bounds it and how it is
-laid out on the card. ``build.py`` compiles it at the first CUDA call.
+laid out on the card. ``build.py`` compiles it at the first CUDA call. The
+library has one entry per input type: bf16 goes to the tensor-core kernel
+(``flash_attention_fwd_bf16``), fp32 to the fp32 kernel on the CUDA cores
+(``flash_attention_fwd_fp32``).
 
 ``flash_attention_fwd`` takes CUDA tensors only and launches the kernel or
 raises; the plain version for CPU tensors is ``ref.flash_attention_ref``,
@@ -20,7 +23,8 @@ from . import build as _build
 
 SOURCE = "flash_attention.cu"
 HEAD_DIMS = (64, 128, 256)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ENTRIES = {torch.float32: "flash_attention_fwd_fp32",
+           torch.bfloat16: "flash_attention_fwd_bf16"}
 
 
 def check_blocks(s: int, t: int, block_q: int = 128,
@@ -34,9 +38,11 @@ def check_blocks(s: int, t: int, block_q: int = 128,
 @functools.lru_cache(maxsize=None)
 def _load() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    lib.flash_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-    lib.flash_attention_fwd.restype = ctypes.c_int
+    for entry in ENTRIES.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -49,7 +55,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
         if x.device != q.device:
             raise ValueError("q, k and v must be on one device")
-        if x.dtype not in _DTYPES or x.dtype != q.dtype:
+        if x.dtype not in ENTRIES or x.dtype != q.dtype:
             raise ValueError(f"q, k, v must all be float32 or bfloat16, got "
                              f"{q.dtype}, {k.dtype}, {v.dtype}")
         if x.dim() != 4 or not x.is_contiguous():
@@ -86,10 +92,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_fwd(
+        err = getattr(lib, ENTRIES[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, s, t, h, kv, d, _DTYPES[q.dtype], int(causal),
-            int(window) if causal else 0, stream)
+            b, s, t, h, kv, d, int(causal), int(window) if causal else 0,
+            stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention_fwd launch failed: {msg} ({err})")

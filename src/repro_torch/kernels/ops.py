@@ -4,8 +4,9 @@ Each op is a ``torch.autograd.Function``. Its forward launches the CUDA
 kernel for CUDA tensors and runs the plain version for CPU tensors; there
 is no other path. The backward passes follow ``repro.kernels.ops``:
 ``flash_attention`` differentiates the plain reference, recomputed from the
-saved (q, k, v); ``rglru_scan`` runs the reverse-time adjoint recurrence,
-which is the same recurrence on flipped inputs and so the same kernel.
+saved (q, k, v); ``rglru_scan`` runs the reverse-time adjoint recurrence in
+the scan kernel's reverse mode, which also forms da, so the backward makes
+no flipped or shifted copies.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 from . import ref
 from .flash_attention import check_blocks, flash_attention_fwd
 from .rglru_scan import check_blocks as rglru_check_blocks
-from .rglru_scan import rglru_scan_fwd
+from .rglru_scan import rglru_scan_bwd, rglru_scan_fwd
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -60,6 +61,21 @@ def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ref.rglru_scan_ref(a3, b3).reshape(b.shape)
 
 
+def _scan_bwd(a: torch.Tensor, g: torch.Tensor,
+              h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(da, db) of the recurrence, flattened as ``_scan``: the kernel's
+    reverse mode on the card, else its plain version on the CPU. g and h
+    are taken in a's dtype."""
+    s, r = a.shape[-2:]
+    a3, g3, h3 = (x.to(a.dtype).reshape(-1, s, r).contiguous()
+                  for x in (a, g, h))
+    if a.device.type == "cuda":
+        da, db = rglru_scan_bwd(a3, g3, h3)
+    else:
+        da, db = ref.rglru_scan_bwd_ref(a3, g3, h3)
+    return da.reshape(a.shape), db.reshape(a.shape)
+
+
 class _RglruScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
@@ -72,12 +88,7 @@ class _RglruScan(torch.autograd.Function):
         # reverse-time adjoint of the linear recurrence:
         #   lam_t = g_t + a_{t+1} lam_{t+1};  db = lam;  da_t = lam_t h_{t-1}
         a, h = ctx.saved_tensors
-        a_next = torch.cat([a[..., 1:, :], torch.zeros_like(a[..., :1, :])],
-                           dim=-2)
-        lam = _scan(a_next.flip(-2), g.to(a.dtype).flip(-2)).flip(-2)
-        h_prev = torch.cat([torch.zeros_like(h[..., :1, :]), h[..., :-1, :]],
-                           dim=-2)
-        return lam * h_prev, lam
+        return _scan_bwd(a, g, h)
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

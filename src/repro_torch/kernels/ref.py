@@ -53,3 +53,27 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         h = af[..., t, :] * h + bf[..., t, :]
         out.append(h)
     return torch.stack(out, dim=-2).to(b.dtype)
+
+
+def rglru_scan_bwd_ref(a: torch.Tensor, g: torch.Tensor,
+                       h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The adjoint of ``rglru_scan_ref`` as a loop: the math of the JAX
+    package's ``_rg_bwd`` (``repro/kernels/ops.py``).
+
+    a, g, h: (..., S, R), h the forward's output and g its gradient.
+    lam_t = g_t + a_{t+1} lam_{t+1} from t = S-1 down to 0 (a_S = 0), with
+    an fp32 carry; returns (da, db) = (lam_t h_{t-1}, lam) in a's dtype,
+    with h_{-1} = 0.
+    """
+    af, gf, hf = a.float(), g.float(), h.float()
+    s = a.shape[-2]
+    zero = torch.zeros_like(gf[..., 0, :])
+    lam = zero
+    da, db = [None] * s, [None] * s
+    for t in range(s - 1, -1, -1):
+        a_next = af[..., t + 1, :] if t + 1 < s else zero
+        lam = a_next * lam + gf[..., t, :]
+        db[t] = lam
+        da[t] = lam * hf[..., t - 1, :] if t > 0 else zero
+    return (torch.stack(da, dim=-2).to(a.dtype),
+            torch.stack(db, dim=-2).to(a.dtype))

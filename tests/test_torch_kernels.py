@@ -1,8 +1,11 @@
 """The port's kernel ops (plain path on the CPU) against the JAX package's
 Pallas kernels in interpret mode: flash attention and the RG-LRU scan over
-the ``test_kernels.py`` matrices, gradients, and the wrappers' refusals.
-Inputs come from numpy."""
+the ``test_kernels.py`` matrices, gradients, the scan's plain adjoint, the
+wrappers' routing to the library's entries (through a stand-in library),
+and their refusals. Inputs come from numpy."""
+import contextlib
 import importlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -15,8 +18,8 @@ from repro.kernels.ops import flash_attention as jax_flash
 from repro.kernels.ops import rglru_scan as jax_rglru_scan
 from repro_torch.kernels import flash_attention, rglru_scan
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.ref import rglru_scan_ref
-from repro_torch.kernels.rglru_scan import rglru_scan_fwd
+from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
+from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -115,6 +118,57 @@ def test_op_refuses_other_devices():
     q = torch.empty((1, 128, 2, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(q, q, q, True, 0)
+
+
+class FakeLib:
+    """Stands in for a kernel library: records each entry called, with its
+    arguments, and returns 0 (success)."""
+
+    def __init__(self, *entries):
+        self.calls = []
+        for name in entries:
+            setattr(self, name, self._entry(name))
+
+    def _entry(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+def fake_launch_env(monkeypatch, module, lib):
+    """Lets ``module``'s wrapper run on CPU tensors against ``lib``: its
+    device check passes, the library is ``lib``, and the stream is 0."""
+    monkeypatch.setattr(module, "_load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+
+
+@pytest.mark.parametrize("dtype,entry", [
+    ("bfloat16", "flash_attention_fwd_bf16"),    # tensor-core kernel
+    ("float32", "flash_attention_fwd_fp32"),     # CUDA-core kernel
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 64)])
+def test_flash_wrapper_routes_each_dtype(dtype, entry, causal, window,
+                                         monkeypatch):
+    mod = importlib.import_module("repro_torch.kernels.flash_attention")
+    lib = FakeLib(*mod.ENTRIES.values())
+    fake_launch_env(monkeypatch, mod, lib)
+    monkeypatch.setattr(mod, "_check", lambda *args: None)   # CPU tensors
+    _, (q, k, v) = qkv(2, 256, 4, 2, 128, dtype)
+    before = mod.flash_attention_fwd.launches
+    out = mod.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert [name for name, _ in lib.calls] == [entry]
+    args = lib.calls[0][1]
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr())
+    assert args[4:] == (2, 256, 256, 4, 2, 128, int(causal),
+                        window if causal else 0, 0)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert mod.flash_attention_fwd.launches == before + 1
 
 
 @pytest.mark.parametrize("module", ["flash_attention", "rglru_scan"])
@@ -219,3 +273,65 @@ def test_rglru_op_refuses_other_devices():
     a = torch.empty((1, 256, 128), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         rglru_scan(a, a)
+
+
+def test_rglru_bwd_wrapper_refuses_cpu_tensors():
+    a, b = scan_inputs((1, 256, 128))
+    before = rglru_scan_fwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan_bwd(a, b, b)
+    assert rglru_scan_fwd.launches == before
+
+
+def test_rglru_wrappers_route_to_both_modes_and_count_once_each(monkeypatch):
+    mod = importlib.import_module("repro_torch.kernels.rglru_scan")
+    lib = FakeLib("rglru_scan_fwd", "rglru_scan_bwd")
+    fake_launch_env(monkeypatch, mod, lib)
+    monkeypatch.setattr(mod, "_check", lambda **tensors: None)  # CPU tensors
+    a, b = scan_inputs((2, 256, 128))
+    before = mod.rglru_scan_fwd.launches
+    h = mod.rglru_scan_fwd(a, b)
+    da, db = mod.rglru_scan_bwd(a, b, h)
+    assert [name for name, _ in lib.calls] == ["rglru_scan_fwd",
+                                               "rglru_scan_bwd"]
+    assert lib.calls[0][1] == (a.data_ptr(), b.data_ptr(), h.data_ptr(),
+                               2, 256, 128, 0, 0)
+    assert lib.calls[1][1] == (a.data_ptr(), b.data_ptr(), h.data_ptr(),
+                               da.data_ptr(), db.data_ptr(), 2, 256, 128, 0,
+                               0)
+    # one counter for the kernel, both directions
+    assert mod.rglru_scan_fwd.launches == before + 2
+
+
+def jax_scan_vjp(a, b, g):
+    """(da, db) from the JAX op's VJP (Pallas forward in interpret mode,
+    reverse associative scan backward)."""
+    _, vjp = jax.vjp(jax_rglru_scan, jnp.asarray(a.numpy()),
+                     jnp.asarray(b.numpy()))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g.numpy()))]
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 128), (2, 512, 256),
+                                   (3, 256, 384), (2, 2, 256, 128)])
+@pytest.mark.parametrize("bf16_rounded", [False, True])
+def test_rglru_plain_adjoint_matches_jax_vjp(shape, bf16_rounded):
+    """The plain version of the kernel's reverse mode is the JAX VJP."""
+    a, b = scan_inputs(shape, bf16_rounded)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(shape)
+                         .astype(np.float32))
+    want_da, want_db = jax_scan_vjp(a, b, g)
+    da, db = rglru_scan_bwd_ref(a, g, rglru_scan_ref(a, b))
+    assert da.dtype == db.dtype == a.dtype
+    np.testing.assert_allclose(db.numpy(), want_db, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(da.numpy(), want_da, atol=1e-5, rtol=1e-5)
+
+
+def test_rglru_scan_grads_match_jax_leading_dims():
+    a, b = scan_inputs((2, 2, 256, 128))
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal(a.shape)
+                         .astype(np.float32))
+    want = jax_scan_vjp(a, b, g)
+    a, b = (x.requires_grad_() for x in (a, b))
+    rglru_scan(a, b).backward(g)
+    for got, w in zip((a.grad, b.grad), want):
+        np.testing.assert_allclose(got.numpy(), w, atol=1e-5, rtol=1e-5)
