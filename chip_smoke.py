@@ -30,7 +30,24 @@ for each source, all started together), then
      call at its path's shape, beside the card's bound, with the achieved
      TFLOP/s (flash) and GB/s (scan, both directions);
   5. profiles one more training step of each path (device time by kernel,
-     idle share).
+     idle share);
+  6. closes the paper's loop on the card (``repro_torch.core``):
+       a. counts the FLOPs of one bf16 gemma smoke step (head_dim 256,
+          S = 256) with the flash kernel on the card, against the same
+          step on the CPU (plain version) and with the kernel off, then of
+          one full-width 4-layer gemma-7b step, beside 6·N·D;
+       b. takes the 4-layer step's utilization (its FLOPs over the phase 3
+          step time at the bf16 peak), calibrates the GPU step DAG with it
+          and predicts that step; counts a 2-layer step, runs it through
+          ``train.run`` (5 steps, launch counts set to 0 before and read
+          after) and predicts it from the 4-layer utilization; each
+          prediction within 2x of its measurement;
+       c. predicts full 28-layer gemma-7b at ``train_4k`` over 1, 2 and 4
+          nodes of 8 GPUs through ``launch/whatif.py`` (straggler 1.3, int8
+          0.25, chunks of 64/16/4 MB), with the orderings the reference's
+          adapter keeps;
+       d. runs the torch waterfill backend on the card over 8192 star and
+          grouped problems against the numpy backend (rtol 2e-4).
 
 Each result is printed as it comes; the line before the card's name is one
 JSON object with the kernels, and the last line is
@@ -398,6 +415,10 @@ def main() -> int:
     profile_step(gemma)
     profile_step(rg)
 
+    # -- phase 6: FLOP count -> calibrated step DAG -> DES predictions -------
+    predict_phase(gemma, counters)
+    waterfill_phase()
+
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -429,6 +450,191 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def predict_phase(gemma: dict, counters) -> None:
+    """Phases 6a-6c: count, calibrate, predict (see the module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import gpu_adapter as ga
+    from repro_torch.core.flop_count import (H100_SXM, count_step_flops,
+                                             model_flops_train)
+    from repro_torch.launch import whatif
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+    peak = H100_SXM.peak_flops
+
+    def step_flops(cfg, params, batch):
+        """FLOPs of one AdamW step of ``cfg`` (it updates ``params``)."""
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.optim import make_optimizer
+        opt = make_optimizer("adamw", lr=3e-4)
+        return count_step_flops(make_train_step(cfg, opt), params,
+                                opt.init(params), batch)
+
+    def copy(tree, device):
+        return tree_map(lambda x: x.detach().to(device, copy=True)
+                        .requires_grad_(x.requires_grad), tree)
+
+    def path_batch(cfg, batch, seq, seed):
+        from repro_torch.data import SyntheticLM
+        data = SyntheticLM(cfg, batch, seq, seed=seed)
+        return {k: v.cuda() for k, v in data.next_batch().items()}
+
+    # 6a: the flash kernel's products are counted on the card
+    cfg = get_config("gemma-7b", smoke=True).replace(
+        remat=True, head_dim=256, dtype="bfloat16", use_flash_kernel=True)
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(1), cfg)
+    batch = path_batch(cfg, 2, 256, 2)
+    n_attn = cfg.n_layers
+    before = counters["flash_attention"].launches
+    on_card = step_flops(cfg, copy(params, "cuda"), batch)
+    require(counters["flash_attention"].launches == before + 2 * n_attn,
+            "the counted smoke step did not run the flash kernel")
+    on_cpu = step_flops(cfg, copy(params, "cpu"), copy(batch, "cpu"))
+    off_card = step_flops(cfg.replace(use_flash_kernel=False),
+                          copy(params, "cuda"), batch)
+    # the kernel-off path computes the same products except the plain
+    # VJP's recomputed forward (two products a layer, 2·B·H·S·T·D each)
+    vjp = n_attn * 2 * (2 * 2 * cfg.n_heads * 256 * 256 * cfg.head_dim)
+    print(f"6a FLOPs of one gemma smoke step (bf16, head_dim 256, S=256, "
+          f"remat): kernel on, card {on_card:.6e}; kernel on, CPU (plain "
+          f"version) {on_cpu:.6e}; kernel off, card {off_card:.6e} "
+          f"(+ {vjp:.6e} of the plain VJP's recomputed forward = "
+          f"{off_card + vjp:.6e})", flush=True)
+    require(abs(on_card - on_cpu) <= 1e-9 * on_cpu,
+            "the card's FLOP count differs from the CPU's")
+    require(off_card + vjp == on_card,
+            "the kernel-off count differs by more than the VJP's forward")
+    del params, batch
+
+    def count_path(cfg):
+        torch.cuda.empty_cache()
+        params = transformer.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        flops = step_flops(cfg, params, path_batch(cfg, 2, 2048, 0))
+        del params
+        torch.cuda.empty_cache()
+        return flops
+
+    cfg4 = gemma["config"]
+    f4 = count_path(cfg4)
+    tokens = gemma["args"].batch * gemma["args"].seq
+    mf4 = model_flops_train(cfg4, tokens)
+    print(f"6a FLOPs of one gemma-7b step at full width, {cfg4.n_layers} "
+          f"layers, kernel on: {f4:.6e}; 6·N·D {mf4:.6e} "
+          f"(N = {transformer.active_param_count(cfg4)}); ratio "
+          f"{f4 / mf4:.4f}", flush=True)
+    require(f4 > mf4, "the counted step has fewer FLOPs than 6·N·D")
+
+    # 6b: calibrate on the 4-layer step, predict it and a 2-layer step
+    t4 = gemma["steady_ms"] / 1e3
+    util = f4 / (t4 * peak)
+    one_gpu = ga.MeshFactors(data=1, model=1, pods=1, mfu=util)
+
+    def dag_flops(cfg, mesh, n_tokens):
+        """The FLOPs the uncalibrated DAG gives its tensor-core segments."""
+        dag = ga.build_step_dag(cfg, mesh, n_tokens)
+        return sum(o.duration for o in dag.ops if o.res == "tensor") \
+            * peak * mesh.mfu
+
+    def predict(cfg, flops):
+        dag = ga.build_step_dag(cfg, one_gpu, tokens)
+        return ga.predict_step_time(ga.calibrate(dag, flops, mfu=util))
+
+    p4 = predict(cfg4, f4)
+    print(f"6b utilization of the {cfg4.n_layers}-layer step: {util:.4f} "
+          f"({f4:.4e} FLOPs in {t4 * 1e3:.1f} ms at {peak:.4g} FLOP/s; "
+          f"the uncalibrated DAG gives its segments "
+          f"{dag_flops(cfg4, one_gpu, tokens):.4e}); predicted "
+          f"{p4 * 1e3:.1f} ms vs measured {t4 * 1e3:.1f} ms (error "
+          f"{p4 / t4 - 1:+.4f})", flush=True)
+    cfg2 = cfg4.replace(n_layers=2)
+    f2 = count_path(cfg2)
+    argv2 = [*GEMMA_ARGV]
+    argv2[argv2.index("--layers") + 1] = "2"
+    two = drive("gemma-7b-2l", argv2, counters)
+    require(two["launches"]["flash_attention"]
+            == two["per_step"]["attn"] * two["steps"],
+            "flash kernel launch count is off on the 2-layer path")
+    t2 = two["steady_ms"] / 1e3
+    p2 = predict(cfg2, f2)
+    print(f"6b gemma-7b 2 layers: {f2:.4e} FLOPs; predicted from the "
+          f"{cfg4.n_layers}-layer utilization {p2 * 1e3:.1f} ms vs measured "
+          f"{t2 * 1e3:.1f} ms (error {p2 / t2 - 1:+.4f})", flush=True)
+    for label, p, t in (("4-layer", p4, t4), ("2-layer", p2, t2)):
+        require(math.isfinite(p) and p > 0 and 0.5 <= p / t <= 2.0,
+                f"the {label} prediction is not within 2x of its step")
+
+    # 6c: full gemma-7b over nodes of 8 GPUs (the DES runs take about a
+    # second, so in this process: no worker processes to start or stop)
+    os.environ["REPRO_SWEEP_SERIAL"] = "1"
+    wins = (64e6, 16e6, 4e6)
+    rows = whatif.node_table("gemma-7b", "train_4k", [1, 2, 4],
+                             gpus_per_node=8, straggler=1.3, compress=0.25,
+                             wins=wins, mfu=util)
+    cfg28, sp = get_config("gemma-7b"), whatif.SHAPES["train_4k"]
+    tokens28 = sp.seq_len * sp.global_batch
+    print(f"6c gemma-7b, 28 layers, train_4k, 8 GPUs a node, mfu "
+          f"{util:.4f} (the DAG gives a GPU "
+          f"{dag_flops(cfg28, ga.MeshFactors(mfu=util), tokens28):.4e} "
+          f"FLOPs a step; 6·N·D / 8 is "
+          f"{model_flops_train(cfg28, tokens28) / 8:.4e}):\n"
+          + whatif.format_table(rows, 1.3, 0.25, wins), flush=True)
+    steps = [r[2] for r in rows]
+    require(all(math.isfinite(t) and t > 0 for t in steps),
+            "a what-if step is not finite and positive")
+    require(steps[0] > steps[1] > steps[2],
+            "more nodes did not give a shorter step")
+    require(all(r[4] >= r[2] for r in rows),
+            "the straggler column is shorter than the step")
+    require(all(r[5] <= r[2] for r in rows),
+            "compression lengthened the step")
+
+
+def waterfill_phase() -> None:
+    """Phase 6d: the torch waterfill backend on the card against numpy."""
+    import random
+
+    import numpy as np
+    from repro_torch.core.bandwidth import (BandwidthModel,
+                                            GroupedBandwidthModel,
+                                            batched_waterfill,
+                                            stack_waterfill_problems)
+    links = [f"{d}:{p}" for d in ("downlink", "uplink") for p in range(2)]
+    models = [
+        (BandwidthModel(), [(w, r) for w in range(6) for r in links]),
+        (GroupedBandwidthModel(
+            link_caps={"downlink:0": 2.0, "uplink:1": 0.5},
+            worker_caps={0: 0.5, 3: 2.0},
+            extra_groups=[
+                ("fabric", 1.5, frozenset({"downlink:0", "downlink:1"})),
+                ("pair", 0.8, frozenset({(1, "uplink:0"),
+                                         (2, "uplink:0")}))]),
+         [(w, r) for w in range(5) for r in links])]
+    rng = random.Random(0)
+    problems = []
+    for model, universe in models:
+        for _ in range(4096):
+            conns = sorted(rng.sample(universe,
+                                      rng.randrange(1, len(universe) + 1)))
+            problems.append((conns, *model.groups_for(conns)))
+    _, caps, members, weights = stack_waterfill_problems(problems)
+    t0 = time.perf_counter()
+    want = batched_waterfill(caps, members, weights)
+    np_ms = (time.perf_counter() - t0) * 1e3
+    batched_waterfill(caps, members, weights, backend="torch")   # warm-up
+    t0 = time.perf_counter()
+    got = batched_waterfill(caps, members, weights, backend="torch")
+    torch_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(got - want).max())
+    ok = bool(np.allclose(got, want, rtol=2e-4, atol=1e-12))
+    print(f"6d waterfill over {len(problems)} problems {tuple(members.shape)}"
+          f": torch on the card {torch_ms:.2f} ms (host clock, copies "
+          f"included), numpy {np_ms:.2f} ms; max_abs_err {err:.3e} (rtol "
+          f"2e-4) {'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, "the torch waterfill disagrees with numpy")
 
 
 def print_ptxas(log: str) -> None:
@@ -581,7 +787,8 @@ def drive(label: str, argv, counters) -> dict:
             f"non-finite loss on the {label} path")
     return {"label": label, "args": args, "config": cfg,
             "launches": launches, "per_step": per_step,
-            "steps": args.steps, "losses": result["losses"]}
+            "steps": args.steps, "losses": result["losses"],
+            "steady_ms": steady}
 
 
 def profile_step(path: dict) -> None:

@@ -1,8 +1,9 @@
 """Architecture registry: the 10 assigned configs (+ reduced smoke forms).
 
-The port's own copy of ``repro.configs`` (whose ``shapes.py`` needs JAX and
-is not carried over). Usage: ``get_config("gemma-7b")``,
-``get_config("gemma-7b", smoke=True)``, ``--arch <id>`` in the launchers.
+The port's own copy of ``repro.configs``; ``shapes.py`` carries the
+reference's ``SHAPES`` data without its JAX input specs. Usage:
+``get_config("gemma-7b")``, ``get_config("gemma-7b", smoke=True)``,
+``--arch <id>`` in the launchers.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import importlib
 from typing import List
 
 from repro_torch.models.config import ModelConfig
+from .shapes import SHAPES, ShapeSpec
 
 _ARCH_MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
@@ -69,4 +71,5 @@ def get_optimizer_name(arch: str) -> str:
     return getattr(_module(arch), "OPTIMIZER", "adamw")
 
 
-__all__ = ["ARCH_IDS", "get_config", "get_optimizer_name"]
+__all__ = ["ARCH_IDS", "SHAPES", "ShapeSpec", "get_config",
+           "get_optimizer_name"]

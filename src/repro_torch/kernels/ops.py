@@ -7,15 +7,41 @@ is no other path. The backward passes follow ``repro.kernels.ops``:
 saved (q, k, v); ``rglru_scan`` runs the reverse-time adjoint recurrence in
 the scan kernel's reverse mode, which also forms da, so the backward makes
 no flipped or shifted copies.
-"""
-from __future__ import annotations
 
+The flash kernel is launched through ``ctypes``, below PyTorch's
+dispatcher, so it runs inside the custom op
+``repro_torch::flash_attention_fwd``, whose FLOP formula
+``FlopCounterMode`` reads: a step's count on the card is then its count on
+the CPU, where the plain version's products are counted directly.
+"""
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import ref
 from .flash_attention import check_blocks, flash_attention_fwd
 from .rglru_scan import check_blocks as rglru_check_blocks
 from .rglru_scan import rglru_scan_bwd, rglru_scan_fwd
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: int) -> torch.Tensor:
+    """The CUDA kernel as a dispatcher op."""
+    return flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+
+@_flash_kernel.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, *,
+                 out_shape=None) -> int:
+    """What ``ref.flash_attention_ref`` counts: its two products (logits
+    and output), 2·B·H·S·T·D FLOPs each, with no causal skipping."""
+    b, s, h, d = q_shape
+    return 4 * b * h * s * k_shape[1] * d
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -24,7 +50,7 @@ class _FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
         if q.device.type == "cuda":
-            return flash_attention_fwd(q, k, v, causal=causal, window=window)
+            return _flash_kernel(q, k, v, causal, window)
         if q.device.type != "cpu":
             raise ValueError(f"flash_attention: unsupported device {q.device}")
         check_blocks(q.shape[1], k.shape[1])

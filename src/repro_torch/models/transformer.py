@@ -131,6 +131,112 @@ def param_count(params: Params) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Parameter shapes from the config alone (no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _block_shapes(kind: str, cfg: ModelConfig) -> Dict:
+    """Leaf shapes of one block, as the reference's ``_init_block`` lays
+    them out, for every block kind (ported or not)."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    norm = {"scale": (d,), **({"bias": (d,)} if cfg.norm == "layernorm"
+                              else {})}
+
+    def mlp(f: int) -> Dict:
+        if cfg.mlp in ("swiglu", "geglu"):
+            return {"wi": (d, f), "wg": (d, f), "wo": (f, d)}
+        return {"wi": (d, f), "wo": (f, d)}
+
+    attn = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
+            "wo": (h, hd, d)}
+    nh = cfg.n_heads
+    p: Dict = {"norm1": norm}
+    if kind in ("attn", "local", "moe", "encdec"):
+        p["attn"] = attn
+    if kind == "encdec":
+        p["norm_x"] = norm
+        p["xattn"] = attn
+    if kind == "xattn":
+        p["xattn"] = {**attn, "gate": ()}
+    if kind == "rglru":
+        r = cfg.rnn_width
+        p["rglru"] = {"rg_in": {"wx": (d, r), "wy": (d, r)},
+                      "rg_gates": {"wa": (r, r), "wi": (r, r)},
+                      "rg_lambda": (r,), "conv": (cfg.conv_width, r),
+                      "rg_out": {"wo": (r, d)}}
+    if kind == "slstm":
+        p["slstm"] = {"lstm_wx": (d, 4, nh, d // nh),
+                      "lstm_wh": (nh, d // nh, 4, d // nh),
+                      "lstm_b": (4, nh, d // nh), "rg_out": {"wo": (d, d)}}
+    if kind == "mlstm":
+        p["mlstm"] = {"lstm_wqkv": (d, 3, nh, d // nh),
+                      "lstm_wif": (d, 2, nh), "lstm_bif": (2, nh),
+                      "lstm_wog": (d, d), "rg_out": {"wo": (d, d)}}
+    if kind == "moe":
+        m, f = cfg.moe, cfg.d_expert_eff
+        p["norm2"] = norm
+        p["moe"] = {"router": {"w": (d, m.num_experts)},
+                    "experts": {"wi": (m.num_experts, d, f),
+                                "wg": (m.num_experts, d, f),
+                                "wo": (m.num_experts, f, d)}}
+        if m.num_shared > 0:
+            p["moe"]["shared"] = mlp(f * m.num_shared)
+        if cfg.dense_residual_ff:
+            p["dense_ff"] = mlp(cfg.dense_residual_ff)
+    elif kind in ("attn", "local", "xattn", "encdec", "rglru") and cfg.d_ff:
+        p["norm2"] = norm
+        p["mlp"] = mlp(cfg.d_ff)
+    return p
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """Every parameter's shape, keyed as the reference's pytree (stacked
+    groups carry a leading ``n_groups`` axis), for any arch, without
+    allocating: a shape-only ``init_params``."""
+    def stacked(tree, n: int):
+        if isinstance(tree, dict):
+            return {k: stacked(v, n) for k, v in tree.items()}
+        return (n, *tree)
+
+    d = cfg.d_model
+    norm = _block_shapes("attn", cfg)["norm1"]
+    p: Dict = {"embed": (cfg.padded_vocab, d), "final_norm": norm}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = (d, cfg.padded_vocab)
+    if cfg.encoder_layers:
+        p["encoder"] = {"layers": stacked(_block_shapes("attn", cfg),
+                                          cfg.encoder_layers),
+                        "final_norm": norm, "pos": (cfg.encoder_len, d)}
+        p["pos_embed"] = (32_768, d)
+    if cfg.n_groups > 0:
+        p["scan"] = stacked({f"s{si}_{kind}": _block_shapes(kind, cfg)
+                             for si, kind in enumerate(cfg.pattern)},
+                            cfg.n_groups)
+    if cfg.n_tail:
+        p["tail"] = {f"t{si}_{kind}": _block_shapes(kind, cfg)
+                     for si, kind in enumerate(cfg.tail_pattern)}
+    return p
+
+
+def param_count_cfg(cfg: ModelConfig) -> int:
+    """Parameters of the arch, from its config alone."""
+    return sum(math.prod(s) for s in leaves(param_shapes(cfg)))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: shared + top_k routed experts)."""
+    total = param_count_cfg(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * cfg.d_expert_eff
+    n_moe_layers = sum(1 for k in cfg.pattern for _ in range(cfg.n_groups)
+                       if k == "moe") + sum(1 for k in cfg.tail_pattern
+                                            if k == "moe")
+    return total - n_moe_layers * (m.num_experts - m.top_k) * per_expert
+
+
+# ---------------------------------------------------------------------------
 # Forward / loss
 # ---------------------------------------------------------------------------
 
