@@ -13,7 +13,11 @@ for each source, all started together), then
      (wgmma) instructions in the bf16 flash kernel's SASS (none fails);
   1. holds each kernel against its plain PyTorch version on the card over
      the reference test matrices, fp32 and bf16 (the two flash kernels),
-     and at the shapes of the training paths, and each autograd op's
+     at the shapes of the training paths, at the prefill shape (1, 32768,
+     16, 16, 256) on its first and last 512 rows, q scaled by 8 so each
+     row's softmax picks a few keys and a lost or misplaced key tile moves
+     the output by O(1) (a full plain version would need a 68 GB score
+     tensor), and each autograd op's
      gradients against plain autograd, the scan's also at its path shape
      (forward and the kernel's reverse mode);
   2. checks each model on the card against itself with the kernels off
@@ -47,7 +51,23 @@ for each source, all started together), then
           0.25, chunks of 64/16/4 MB), with the orderings the reference's
           adapter keeps;
        d. runs the torch waterfill backend on the card over 8192 star and
-          grouped problems against the numpy backend (rtol 2e-4).
+          grouped problems against the numpy backend (rtol 2e-4);
+  7. serves through ``repro_torch.launch.serve.run`` at full width and
+     depth, bf16, B = 8, a prompt of 128 tokens fed through ``serve_step``
+     and 128 greedy tokens, with the launch counts set to 0 just before and
+     read just after (the decode path runs no kernel: both stay 0):
+       a. gemma-7b, 28 layers (a KV cache a layer);
+       b. recurrentgemma-2b, 26 layers (RG-LRU state and a local ring);
+     each then feeds what it served (the prompt and the generated ids,
+     256 tokens) through ``serve_step`` again, with the same weights and a
+     state of the served max_len, and holds every position's logits to
+     ``forward`` on the same tokens (the reference's bound, 2e-2 of
+     max(|logits|, 1)); then times the host's enqueue of one decode step
+     against the synchronised step and profiles 4 decode steps;
+       c. prefills gemma-7b, 28 layers, B = 1, S = 32768 (``prefill_32k``
+          for one card) through ``launch.steps.make_prefill_step`` with the
+          flash kernel on: one warm-up, then 3 timed runs, 28 flash launches
+          each, finite logits, and a profile of one more prefill.
 
 Each result is printed as it comes; the line before the card's name is one
 JSON object with the kernels, and the last line is
@@ -66,6 +86,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -82,6 +103,13 @@ GEMMA_ARGV = ["--arch", "gemma-7b", "--layers", "4", *COMMON_ARGV]
 # recurrentgemma-2b at full width and depth: 26 layers, 46.3 GB of state.
 RG_ARGV = ["--arch", "recurrentgemma-2b", *COMMON_ARGV]
 SLICE = (2, 2048, 16, 16, 256)          # flash b, s, h, kv, d on its path
+PREFILL = (1, 32768, 16, 16, 256)       # ... on the prefill path
+PREFILL_ROWS = 512                      # rows held against the plain version
+PREFILL_Q_SCALE = 8     # peaks the softmax there, so each output is O(1)
+# serving at full width and depth: B = 8, a 128-token prompt, 128 greedy
+# tokens; gemma-7b's fp32 weights take 34.2 GB, recurrentgemma-2b's 11.6 GB
+SERVE_ARGV = ["--full", "--batch", "8", "--prompt-len", "128", "--gen",
+              "128", "--device", "cuda"]
 RG_SHAPE = (2, 2048, 2560)              # rglru_scan (B, S, R) on its path
 # Profile groups, by kernel name (first match wins).
 KERNEL_GROUPS = [
@@ -195,6 +223,7 @@ def main() -> int:
                                          rglru_scan_bwd_ref, rglru_scan_ref)
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
 
+    warnings.filterwarnings("ignore", message=".*Profiler clears events")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = smi()
@@ -258,6 +287,8 @@ def main() -> int:
         if (shape, dt) == (SLICE, "bfloat16"):
             slice_err = err
         del q, k, v, out, want
+
+    prefill = prefill_rows(inputs, flash_attention_fwd, flash_attention_ref)
 
     # the autograd op on CUDA tensors: kernel forward, reference backward
     q, k, v = (x.requires_grad_() for x in inputs(1, 256, 2, 2, 64,
@@ -419,18 +450,33 @@ def main() -> int:
     predict_phase(gemma, counters)
     waterfill_phase()
 
+    # -- phase 7: serving: decode at full depth, prefill at prefill_32k -----
+    for label, arch in (("7a", "gemma-7b"), ("7b", "recurrentgemma-2b")):
+        serve_phase(label, arch, counters)
+    prefill_launches = prefill_phase(counters)
+
+    flash_launches = {"train gemma-7b 4 layers x 5 steps":
+                      gemma["launches"]["flash_attention"],
+                      "prefill gemma-7b 28 layers x 3 runs": prefill_launches}
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
-        "launches": gemma["launches"]["flash_attention"],
+        "launches": sum(flash_launches.values()),
+        "launches_by_path": flash_launches,
         "max_abs_err": slice_err,
         "ms": fa_ms,
         "plain_ms": fa_plain,
         "bound_ms": fa_bound,
         "bound_by": fa_by,
         "library_ms": fa_lib,
+        "prefill_shape": list(PREFILL),
+        "prefill_max_abs_err_first_rows": prefill["err_first"],
+        "prefill_max_abs_err_last_rows": prefill["err_last"],
+        "prefill_ms": prefill["ms"],
+        "prefill_bound_ms": prefill["bound_ms"],
+        "prefill_library_ms": prefill["library_ms"],
     }, {
         "name": "rglru_scan",
         "route": "cuda",
@@ -450,6 +496,232 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def prefill_rows(inputs, kernel, plain) -> dict:
+    """Phase 1a at the prefill shape: the kernel's first and last
+    ``PREFILL_ROWS`` rows against the plain version (the last rows right-
+    aligned against all T keys), its time, SDPA's, and the bound.
+
+    q is scaled by ``PREFILL_Q_SCALE`` (exact in bf16): with N(0, 1) inputs
+    the last rows would average v over 32k keys, outputs of about 0.007
+    that the 2e-2 tolerance could not tell from a kernel that drops a key
+    tile; with the softmax peaked on a few keys they are O(1)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    b, s, h, kv, d = PREFILL
+    n = PREFILL_ROWS
+    q, k, v = inputs(*PREFILL, "bfloat16")
+    q.mul_(PREFILL_Q_SCALE)
+    out = kernel(q, k, v)
+    torch.cuda.synchronize()
+    errs = []
+    for rows, got, want in (
+            (f"0:{n}", out[:, :n], plain(q[:, :n], k[:, :n], v[:, :n])),
+            (f"{s - n}:{s}", out[:, -n:], plain(q[:, -n:], k, v))):
+        rel = (got.float() - want.float()).norm() / want.float().norm()
+        print(f"flash at {PREFILL}, rows {rows}: max |plain| "
+              f"{want.float().abs().max().item():.3f}, relative norm error "
+              f"{rel.item():.3e}")
+        errs.append(check_close(
+            f"flash kernel-vs-plain {PREFILL} bf16 causal, q x "
+            f"{PREFILL_Q_SCALE}, rows {rows}", got, want, TOL["bfloat16"]))
+    del out, got, want
+    ms = cuda_ms(lambda: kernel(q, k, v), iters=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    # no math backend: its score tensor would not fit
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    with sdpa_kernel(fused):
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=5, warmup=1)
+    del qt, kt, vt
+    bound_ms, by = attention_bound(b, s, h, kv, d, s, "bfloat16")
+    flops = 4 * b * h * d * attention_pairs(s, s, True, 0)
+    print(f"flash_attention at {PREFILL} bf16 causal: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), sdpa {lib:.4f} ms "
+          f"({flops / lib / 1e9:.1f} TFLOP/s), bound "
+          f"{bound_ms:.4f} ms ({by}, "
+          f"{bound_ms / ms:.3f} of it reached); plain: not run at this "
+          f"shape (its score tensor would take "
+          f"{4 * b * h * s * s / 1e9:.1f} GB)", flush=True)
+    return {"err_first": errs[0], "err_last": errs[1], "ms": ms,
+            "bound_ms": bound_ms, "library_ms": lib}
+
+
+def serve_phase(label: str, arch: str, counters) -> None:
+    """Phases 7a and 7b: ``serve.run`` at full width and depth, then decode
+    with teacher forcing against ``forward`` at full depth."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    args = serve.build_argparser().parse_args(["--arch", arch, *SERVE_ARGV])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    res = serve.run(args)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg, ids = res["config"], res["ids"]
+    dec = [1e3 * t for t in res["decode_seconds"]]
+    pre = [1e3 * t for t in res["prefill_seconds"]]
+    med = statistics.median(dec)
+    kinds = [k for _ in range(cfg.n_groups) for k in cfg.pattern] \
+        + list(cfg.tail_pattern)
+    print(f"{label} serve {arch}: layers {cfg.n_layers} "
+          f"({' '.join(kinds)}) d_model {cfg.d_model} dtype {cfg.dtype}, "
+          f"B={args.batch}, prompt {args.prompt_len}, gen {args.gen}, "
+          f"max_len {args.prompt_len + args.gen}", flush=True)
+    print(f"{label} serve {arch}: ms a token step {med:.3f} (median of "
+          f"{len(dec)} decode steps; min {min(dec):.3f}, max "
+          f"{max(dec):.3f}); decode tokens/s {args.batch / med * 1e3:.1f}; "
+          f"prefill {sum(pre) / 1e3:.3f} s ({len(pre)} steps, first "
+          f"{pre[0]:.1f} ms, median {statistics.median(pre):.3f} ms); peak "
+          f"memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); launches "
+          + ", ".join(f"{k} {n}" for k, n in launches.items())
+          + " (the decode path runs no kernel)", flush=True)
+    print(f"{label} serve {arch}: first generated ids "
+          f"{ids[0, :12].tolist()}", flush=True)
+    require(tuple(ids.shape) == (args.batch, args.gen)
+            and int(ids.min()) >= 0 and int(ids.max()) < cfg.vocab,
+            f"{label}: generated ids out of range")
+    require(all(n == 0 for n in launches.values()),
+            f"{label}: the decode path launched a kernel")
+    params, prompts = res["params"], res["prompts"]
+    del res
+
+    # teacher forcing on what was served: the same weights, a state of the
+    # served max_len, the prompt and the generated ids fed through
+    # serve_step; every position's logits held to forward's on the same
+    # tokens (the reference's test_decode_matches_forward_teacher_forced)
+    max_len = args.prompt_len + args.gen
+    toks = torch.cat([prompts, ids.to(prompts.device)], dim=1)
+    with torch.inference_mode():
+        full, _ = transformer.forward(params, {"tokens": toks}, cfg)
+    state = transformer.init_decode_state(cfg, args.batch, max_len, "cuda")
+    errs, greedy = [], []
+    for i in range(max_len):
+        li, state = transformer.serve_step(params, state, toks[:, i], cfg)
+        errs.append((li[:, :cfg.vocab].float()
+                     - full[:, i, :cfg.vocab].float()).abs().max())
+        greedy.append(li.argmax(-1))
+    errs = torch.stack(errs).cpu()
+    err = errs.max().item()
+    # the served ids against the argmax of these logits (informational)
+    same = (torch.stack(greedy[args.prompt_len - 1:-1], dim=1).cpu()
+            == ids).float().mean().item()
+    # over the real vocab: a padded tail holds -finfo.max / 2
+    scale = full[..., :cfg.vocab].float().abs().max().item()
+    tol = 2e-2 * max(scale, 1.0)
+    print(f"{label} serve {arch}: teacher-forced decode vs forward over the "
+          f"served {max_len} tokens (prompt + generated) at B={args.batch}, "
+          f"same weights, max_len {max_len}: max_abs_err {err:.4e} (prompt "
+          f"positions {errs[:args.prompt_len].max().item():.4e}, generated "
+          f"{errs[args.prompt_len:].max().item():.4e}), max |logits| "
+          f"{scale:.3f}, bound {tol:.4e} {'ok' if err < tol else 'FAIL'}; "
+          f"served ids equal to this decode's argmax: {same:.4f}",
+          flush=True)
+    require(math.isfinite(err) and err < tol,
+            f"{label}: decode disagrees with forward")
+    del full, li, greedy
+
+    # the host's share of a token step: time to enqueue one step with the
+    # device idle, against the same step synchronised (a gap near 0 means
+    # the device waited on the host), then the device time of 4 steps; at
+    # the serving shape (B = 8, max_len 256) from position 128
+    state["pos"].fill_(args.prompt_len)
+    tok = toks[:, args.prompt_len]
+
+    def step():
+        nonlocal state
+        _, state = transformer.serve_step(params, state, tok, cfg)
+
+    for _ in range(2):
+        step()
+    enq, synced = [], []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enq.append((t1 - t0) * 1e3)
+        synced.append((time.perf_counter() - t0) * 1e3)
+    print(f"{label} serve {arch}: host enqueue of one decode step "
+          f"{statistics.median(enq):.3f} ms, synchronised "
+          f"{statistics.median(synced):.3f} ms (medians of 8; enqueue "
+          f"{min(enq):.3f}-{max(enq):.3f}, synchronised "
+          f"{min(synced):.3f}-{max(synced):.3f})", flush=True)
+    prof, wall_ms = profiled(step, n=4)
+    report_profile(f"{label} serve {arch}: profile of 4 decode steps", prof,
+                   wall_ms)
+    del params, state
+
+
+def prefill_phase(counters) -> int:
+    """Phase 7c: gemma-7b's prefill at ``prefill_32k`` (B = 1 a card)
+    through ``make_prefill_step``, the flash kernel on; returns the flash
+    launches of the 3 timed runs."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer
+    seq = SHAPES["prefill_32k"].seq_len
+    cfg = get_config("gemma-7b").replace(use_flash_kernel=True)
+    torch.cuda.empty_cache()
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = {"tokens": SyntheticLM(cfg, 1, seq, seed=0).next_batch()[
+        "tokens"].cuda()}
+    step = make_prefill_step(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logits = step(params, batch)                 # warm-up
+    torch.cuda.synchronize()
+    del logits
+    for c in counters.values():
+        c.launches = 0
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if len(ms) < 3:
+            del logits
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    lo, hi = logits.amin().float().item(), logits.amax().float().item()
+    shape = tuple(logits.shape)
+    del logits
+    prof, wall_ms = profiled(lambda: step(params, batch))
+    report_profile("7c prefill gemma-7b: profile of one prefill", prof,
+                   wall_ms)
+    del params
+    n_attn = sum(k == "attn" for k in cfg.pattern) * cfg.n_groups
+    flops = 2 * transformer.param_count_cfg(cfg) * seq \
+        + n_attn * 4 * cfg.n_heads * cfg.head_dim \
+        * attention_pairs(seq, seq, True, 0)
+    med = statistics.median(ms)
+    bound_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    print(f"7c prefill gemma-7b: layers {cfg.n_layers}, B=1, S={seq}, "
+          f"bf16, flash kernel on: ms " + " / ".join(f"{x:.1f}" for x in ms)
+          + f" (median {med:.1f}); tokens/s {seq / med * 1e3:.1f}; model "
+          f"FLOPs {flops:.4e} (2·N·S + attention), {flops / med / 1e9:.1f} "
+          f"TFLOP/s, bound {bound_ms:.1f} ms ({bound_ms / med:.3f} of it "
+          f"reached); peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} "
+          f"GB); launches " + ", ".join(f"{k} {n}" for k, n in
+                                        launches.items())
+          + f" ({launches['flash_attention'] / 3:g} a prefill, expected "
+          f"{n_attn}); logits {shape} in [{lo:.3f}, {hi:.3f}]", flush=True)
+    require(launches["flash_attention"] == 3 * n_attn,
+            "7c: the prefill did not launch the flash kernel once a layer")
+    require(shape == (1, seq, cfg.padded_vocab) and math.isfinite(lo)
+            and math.isfinite(hi), "7c: prefill logits not finite")
+    return launches["flash_attention"]
 
 
 def predict_phase(gemma: dict, counters) -> None:
@@ -795,11 +1067,7 @@ def profile_step(path: dict) -> None:
     """Device time of one steady training step of a path, by kernel, and
     the share of the step's host wall time the device was idle (the
     profiler's own host cost makes that share an upper bound)."""
-    import warnings
-
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    warnings.filterwarnings("ignore", message=".*Profiler clears events")
     from repro_torch.configs import get_optimizer_name
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.steps import make_train_step
@@ -824,31 +1092,49 @@ def profile_step(path: dict) -> None:
 
     for _ in range(2):
         step()
+    prof, wall_ms = profiled(step)
+    del params, state
+    report_profile(f"{label} profile of one step", prof, wall_ms)
+
+
+def profiled(fn, n: int = 1):
+    """(profile, wall ms) of ``n`` calls of ``fn``, ending in a
+    synchronise."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        step()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    del params, state
+    return prof, wall_ms
+
+
+def report_profile(label: str, prof, wall_ms: float) -> None:
+    """Device time by kernel group and the top kernels of a profile, and
+    the share of the wall time the device was idle (the profiler's own
+    host cost makes that share an upper bound)."""
+    import torch
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     if busy <= 0:
-        print(f"{label} profile of one step: no device time in the trace "
-              "(not measured)")
+        print(f"{label}: no device time in the trace (not measured)")
         return
-    print(f"{label} profile of one step: wall {wall_ms:.1f} ms, device busy "
-          f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+    print(f"{label}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}, "
+          f"{sum(r[2] for r in rows)} kernels")
     groups = {}
     for name, ms, _ in rows:
         cat = next((c for c, keys in KERNEL_GROUPS if any(
             key in name for key in keys)), "other")
         groups[cat] = groups.get(cat, 0.0) + ms
-    print(f"{label} profile by group: " + ", ".join(
+    print(f"{label} by group: " + ", ".join(
         f"{c} {ms:.1f} ms ({ms / busy:.3f})"
         for c, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
     for name, ms, n in rows[:15]:

@@ -1,5 +1,7 @@
 from .config import ModelConfig, MoEConfig
-from .transformer import forward, init_params, loss_fn, param_count
+from .transformer import (decode_state_shapes, forward, init_decode_state,
+                          init_params, loss_fn, param_count, serve_step)
 
 __all__ = ["ModelConfig", "MoEConfig", "forward", "loss_fn", "init_params",
-           "param_count"]
+           "param_count", "init_decode_state", "decode_state_shapes",
+           "serve_step"]

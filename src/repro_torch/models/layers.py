@@ -1,6 +1,7 @@
 """Shared neural-net primitives for the model zoo, dense subset (PyTorch).
 
-The port of ``repro.models.layers``, the parts the dense blocks use.
+The port of ``repro.models.layers``, the parts the dense blocks and their
+decode step (``init_kv_cache``, ``decode_attention``) use.
 Parameters are nested dicts of tensors whose keys and einsum layouts match
 the JAX pytree exactly (``wq`` is ``(d, H, hd)``, ``wo`` is ``(H, hd, d)``),
 so JAX weights carry across with ``repro_torch.convert.params_from_numpy``.
@@ -154,11 +155,12 @@ def _qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor):
     return q, k, v
 
 
-def mha_logits_to_out(q, k, v, mask,
-                      cfg: Optional[ModelConfig]) -> torch.Tensor:
+def mha_logits_to_out(q, k, v, mask, cfg: Optional[ModelConfig],
+                      softcap: float = 0.0) -> torch.Tensor:
     """Grouped-query attention core. q: (B,S,H,D); k,v: (B,T,Kv,D).
 
     mask: broadcastable to (B, 1, S, T) boolean (True = attend) or None.
+    ``softcap > 0`` caps the scores at ``softcap * tanh(logits / softcap)``.
     """
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
@@ -169,6 +171,9 @@ def mha_logits_to_out(q, k, v, mask,
     score_dt = dtype_of(cfg.scores_dtype) if cfg is not None \
         else torch.float32
     logits = logits.to(score_dt)
+    if softcap > 0.0:
+        cap = _weak(softcap, score_dt)
+        logits = cap * torch.tanh(logits / cap)
     if mask is not None:
         m = mask[:, :, None, :, :] if mask.dim() == 4 else mask
         neg = torch.tensor(torch.finfo(score_dt).min / 2, dtype=score_dt,
@@ -254,3 +259,57 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 if causal else None)
         out = mha_logits_to_out(q, k, v, mask, cfg)
     return torch.einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Decode-path attention with a KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_slots: int,
+                  window: int = 0, device="cpu") -> Params:
+    """One stacked cache for ``n_slots`` attention layers, laid out
+    (n_slots, B, S, n_kv, head_dim). Sliding-window layers keep a ring of
+    ``min(max_len, window)`` positions."""
+    s = min(max_len, window) if window > 0 else max_len
+    shape = (n_slots, batch, s, cfg.n_kv, cfg.head_dim)
+    dt = dtype_of(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: torch.Tensor,
+                     cfg: ModelConfig, window: int = 0,
+                     use_rope: bool = True):
+    """One-token decode. x: (B, 1, d); cache_*: (B, S, n_kv, hd); pos: 0-d
+    int tensor on x's device, the current absolute position.
+
+    Writes the new k/v row into the caches in place (the reference's
+    ``dynamic_update_slice`` on a donated cache) and returns
+    ``(out, cache_k, cache_v)``. ``pos`` stays on the device: no host sync.
+    """
+    q, k, v = _qkv(p, x, x)
+    if use_rope:
+        ppos = pos.expand(x.shape[0], 1)
+        q = apply_rope(q, ppos, cfg.rope_theta)
+        k = apply_rope(k, ppos, cfg.rope_theta)
+    s_cache = cache_k.shape[1]
+    # a window's ring slot; else pos, clamped into the cache as
+    # dynamic_update_slice clamps its start
+    slot = pos % s_cache if window > 0 else pos.clamp(max=s_cache - 1)
+    index = slot.long().view(1)
+    cache_k.index_copy_(1, index, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, index, v.to(cache_v.dtype))
+    idx = torch.arange(s_cache, device=x.device)
+    if window > 0:
+        # ring buffer: slot i holds absolute position pos - ((slot - i) mod
+        # S); valid iff that position exists (age < min(pos + 1, S)).
+        age = (slot - idx) % s_cache
+        valid = age < (pos + 1).clamp(max=s_cache)
+    else:
+        valid = idx <= pos
+    out = mha_logits_to_out(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                            valid[None, None, None, :], cfg)
+    y = torch.einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
+    return y, cache_k, cache_v

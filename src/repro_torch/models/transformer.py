@@ -15,6 +15,14 @@ Public API:
   init_params(gen, cfg)            parameter dict on ``gen.device``
   forward(params, batch, cfg)      (logits, aux)
   loss_fn(params, batch, cfg)      (loss, metrics)
+  init_decode_state(cfg, B, max_len, device)   KV caches and RG-LRU states
+  decode_state_shapes(cfg, B, max_len)         the same tree on ``meta``
+  serve_step(params, state, token, cfg)        (logits, state), one token
+
+``serve_step`` updates the decode state in place and returns it, as the
+reference's jitted step donates it: the caller passes each state once.
+``precompute_cross_kv`` fills cross-attention slots, which only the
+unported ``xattn``/``encdec`` kinds have; it waits for ROADMAP 1.11.
 """
 from __future__ import annotations
 
@@ -28,8 +36,8 @@ from repro_torch.tree import leaves, tree_map
 from . import recurrent as rec
 from .config import ModelConfig
 from .layers import (Params, _weak, apply_mlp, apply_norm, attention_block,
-                     dense_init, dtype_of, embed_init, init_attention,
-                     init_mlp, init_norm)
+                     decode_attention, dense_init, dtype_of, embed_init,
+                     init_attention, init_kv_cache, init_mlp, init_norm)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -115,11 +123,18 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
         if not cfg.tie_embeddings:
             p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab))
         if cfg.n_groups > 0:
-            groups = [{f"s{si}_{kind}": _init_block(gen, kind, cfg)
-                       for si, kind in enumerate(cfg.pattern)}
-                      for _ in range(cfg.n_groups)]
-            p["scan"] = tree_map(lambda *xs: torch.stack(xs), *groups)
-            del groups
+            def group():
+                return {f"s{si}_{kind}": _init_block(gen, kind, cfg)
+                        for si, kind in enumerate(cfg.pattern)}
+            # each group is copied into its row as it is drawn, so the
+            # weights are never held twice
+            first = group()
+            p["scan"] = tree_map(
+                lambda x: x.new_empty((cfg.n_groups, *x.shape)), first)
+            for g in range(cfg.n_groups):
+                tree_map(lambda dst, src: dst[g].copy_(src), p["scan"],
+                         first if g == 0 else group())
+            del first
         if cfg.n_tail:
             p["tail"] = {f"t{si}_{kind}": _init_block(gen, kind, cfg)
                          for si, kind in enumerate(cfg.tail_pattern)}
@@ -305,3 +320,101 @@ def loss_fn(params: Params, batch: Batch,
                                                            min=1.0)
     loss = ce + aux["aux_loss"] + aux["z_loss"]
     return loss, {"ce": ce, **aux}
+
+
+# ---------------------------------------------------------------------------
+# Decode (serve_step)
+# ---------------------------------------------------------------------------
+
+
+def _slot_state(kind: str, cfg: ModelConfig, batch: int, max_len: int,
+                device) -> Params:
+    _check_kind(kind)
+    if kind == "rglru":
+        return rec.init_rglru_state(cfg, batch, device)
+    window = cfg.window if kind == "local" else 0
+    return {name: c[0] for name, c in init_kv_cache(
+        cfg, batch, max_len, 1, window=window, device=device).items()}
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device="cpu") -> Params:
+    """Zero decode state laid out as the reference's: ``pos`` (0-d int32),
+    stacked group slots under ``"scan"`` with a leading ``n_groups`` axis,
+    the remainder under ``"tail"``."""
+    state: Params = {"pos": torch.zeros((), dtype=torch.int32,
+                                        device=device)}
+    if cfg.n_groups > 0:
+        state["scan"] = {
+            f"s{si}_{kind}": tree_map(
+                lambda x: torch.zeros((cfg.n_groups, *x.shape),
+                                      dtype=x.dtype, device=device),
+                _slot_state(kind, cfg, batch, max_len, "meta"))
+            for si, kind in enumerate(cfg.pattern)}
+    if cfg.n_tail:
+        state["tail"] = {
+            f"t{si}_{kind}": _slot_state(kind, cfg, batch, max_len, device)
+            for si, kind in enumerate(cfg.tail_pattern)}
+    return state
+
+
+def decode_state_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    """The decode state's tree on the ``meta`` device: shapes and dtypes,
+    nothing allocated (the reference's ``jax.eval_shape``)."""
+    return init_decode_state(cfg, batch, max_len, "meta")
+
+
+def _step_block(kind: str, p: Params, x: torch.Tensor, st: Params,
+                pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One block for one token; writes the slot's new state into ``st``."""
+    if kind in ("attn", "local"):
+        w = cfg.window if kind == "local" else 0
+        h = apply_norm(p["norm1"], x, cfg)
+        y, _, _ = decode_attention(p["attn"], h, st["k"], st["v"], pos, cfg,
+                                   window=w, use_rope=(cfg.rope_theta > 0))
+        x = x + y
+    if kind == "rglru":
+        y, s2 = rec.step_rglru(p["rglru"], apply_norm(p["norm1"], x, cfg),
+                               st, cfg)
+        for name, t in s2.items():
+            st[name].copy_(t)
+        x = x + y
+    if "mlp" in p:
+        x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
+    return x
+
+
+@torch.no_grad()
+def serve_step(params: Params, state: Params, token: torch.Tensor,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
+    """One decode step. token: (B,) int. Returns (logits (B, V), state).
+
+    The caches and recurrent states are updated in place; ``pos`` is a new
+    0-d tensor. Nothing is read back to the host."""
+    for kind in (*cfg.pattern, *cfg.tail_pattern):
+        _check_kind(kind)
+    dt = dtype_of(cfg.dtype)
+    pos = state["pos"]
+    x = params["embed"][token[:, None]].to(dt)
+    x = x * _weak(math.sqrt(cfg.d_model), dt)
+
+    if cfg.n_groups > 0:
+        slots = {key: _unstack(st, cfg.n_groups)
+                 for key, st in state["scan"].items()}
+        for g, gp in enumerate(_unstack(params["scan"], cfg.n_groups)):
+            for si, kind in enumerate(cfg.pattern):
+                key = f"s{si}_{kind}"
+                x = _step_block(kind, gp[key], x, slots[key][g], pos, cfg)
+    for si, kind in enumerate(cfg.tail_pattern):
+        key = f"t{si}_{kind}"
+        x = _step_block(kind, params["tail"][key], x, state["tail"][key],
+                        pos, cfg)
+
+    x = apply_norm(params["final_norm"], x, cfg)
+    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    logits = torch.einsum("bsd,dv->bsv", x, head.to(dt))[:, 0]
+    if cfg.logits_softcap > 0:
+        logits = _weak(cfg.logits_softcap, dt) * torch.tanh(
+            logits.float() / cfg.logits_softcap).to(dt)
+    logits = _mask_pad_vocab(logits, cfg)
+    return logits, {**state, "pos": pos + 1}
