@@ -49,7 +49,9 @@ for each source, all started together), then
        c. predicts full 28-layer gemma-7b at ``train_4k`` over 1, 2 and 4
           nodes of 8 GPUs through ``launch/whatif.py`` (straggler 1.3, int8
           0.25, chunks of 64/16/4 MB), with the orderings the reference's
-          adapter keeps;
+          adapter keeps; its utilization is 6b's times the DAG's share of
+          the 28-layer step's FLOPs, counted on fake tensors at one
+          sequence of ``train_4k`` (the DAG holds only 6·P_layer·D);
        d. runs the torch waterfill backend on the card over 8192 star and
           grouped problems against the numpy backend (rtol 2e-4);
   7. serves through ``repro_torch.launch.serve.run`` at full width and
@@ -67,7 +69,31 @@ for each source, all started together), then
        c. prefills gemma-7b, 28 layers, B = 1, S = 32768 (``prefill_32k``
           for one card) through ``launch.steps.make_prefill_step`` with the
           flash kernel on: one warm-up, then 3 timed runs, 28 flash launches
-          each, finite logits, and a profile of one more prefill.
+          each, finite logits, and a profile of one more prefill;
+  8. drives the rest of the training driver (``train.run`` with the launch
+     counts set to 0 before each run and read after), its checkpoints in
+     ``build/phase8/``, removed at the end:
+       a. the phase-3 gemma-7b path with ``--ckpt-dir``: a run with
+          ``--fail-at 2`` (saves step 0, then raises exactly "simulated
+          node failure at step 2"), the same command again (restores step
+          0, runs steps 1-4, saves step 4), its losses within 1e-4 relative
+          of phase 3's; the step-4 checkpoint, evicted from the page cache,
+          restored into fresh tensors and ``torch.equal`` to the run's
+          final state; bytes, save and restore seconds. It first requires
+          free disk of 2.2x a checkpoint, and cuts to 2 layers, saying so,
+          if the disk holds only that;
+       b. ``CheckpointCostModel.calibrate`` at 2^24, 2^26, 2^28 fp32
+          elements on that disk, and its predicted restore of 8a's
+          checkpoint against 8a's measured restores;
+       c. the 2-layer gemma-7b path of 6b with ``--async-staleness 2
+          --compress int8`` (step-0 loss bit-equal to 6b's) and with
+          ``--compress topk``; the compressors on one step's gradients at
+          full width (int8 wire bytes, top-k index count, compress and
+          decompress ms) and on layer 0's MLP weight gradient on the card
+          against the CPU (equal payloads);
+       d. three updates of momentum, adamw_bf16 and adafactor on one
+          (3072, 24576) leaf, card against CPU (1e-6), and an adamw_bf16
+          state of it saved and restored bit-equal.
 
 Each result is printed as it comes; the line before the card's name is one
 JSON object with the kernels, and the last line is
@@ -111,6 +137,13 @@ PREFILL_Q_SCALE = 8     # peaks the softmax there, so each output is O(1)
 SERVE_ARGV = ["--full", "--batch", "8", "--prompt-len", "128", "--gen",
               "128", "--device", "cuda"]
 RG_SHAPE = (2, 2048, 2560)              # rglru_scan (B, S, R) on its path
+# phase 8's checkpoints, inside the checkout (``build/`` is ignored by git);
+# removed when the phase ends, passed or failed
+PHASE8_DIR = ROOT / "build" / "phase8"
+# free disk asked for before 8a: two checkpoints on disk and some room
+DISK_FACTOR = 2.2
+RESTART_TOL = 1e-4      # the reference's restart bound (relative)
+OPT_SHAPE = (3072, 24576)               # 8d: one full-width MLP weight
 # Profile groups, by kernel name (first match wins).
 KERNEL_GROUPS = [
     ("flash_attention", ("attn_fwd",)),
@@ -201,7 +234,7 @@ def check_close(label: str, out, want, tol: float) -> float:
     ok = bool((diff <= tol * (1 + want.float().abs())).all())
     print(f"{label}: max_abs_err {err:.3e} (tol {tol}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
-    require(ok and math.isfinite(err), f"{label}: kernel disagrees")
+    require(ok and math.isfinite(err), f"{label}: out of tolerance")
     return err
 
 
@@ -447,7 +480,7 @@ def main() -> int:
     profile_step(rg)
 
     # -- phase 6: FLOP count -> calibrated step DAG -> DES predictions -------
-    predict_phase(gemma, counters)
+    two = predict_phase(gemma, counters)
     waterfill_phase()
 
     # -- phase 7: serving: decode at full depth, prefill at prefill_32k -----
@@ -455,9 +488,19 @@ def main() -> int:
         serve_phase(label, arch, counters)
     prefill_launches = prefill_phase(counters)
 
+    # -- phase 8: the training driver in full -------------------------------
+    try:
+        restart = restart_phase(gemma, two, counters)
+        calibrate_phase(restart)
+        async_launches = async_phase(two, counters)
+        optimizer_phase()
+    finally:
+        shutil.rmtree(PHASE8_DIR, ignore_errors=True)
+
     flash_launches = {"train gemma-7b 4 layers x 5 steps":
                       gemma["launches"]["flash_attention"],
-                      "prefill gemma-7b 28 layers x 3 runs": prefill_launches}
+                      "prefill gemma-7b 28 layers x 3 runs": prefill_launches,
+                      **restart["launches"], **async_launches}
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -496,6 +539,295 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def state_bytes(cfg) -> int:
+    """fp32 params and AdamW's two fp32 moments: 12 bytes a parameter."""
+    from repro_torch.models.transformer import param_count_cfg
+    return 12 * param_count_cfg(cfg)
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def evict(path: Path) -> None:
+    """Drops a checkpoint's files from the page cache (fsync, then
+    ``POSIX_FADV_DONTNEED``), so that the next read comes from the disk."""
+    for f in path.rglob("*"):
+        if f.is_file():
+            fd = os.open(f, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+
+
+def same_state(want, got) -> int:
+    """Leaves of two ``{"params", "opt_state"}`` trees, matched by key,
+    that differ (``torch.equal``; an ``int`` step by value)."""
+    from repro_torch.tree import leaves, tree_map
+    return sum(leaves(tree_map(
+        lambda w, g: int(w != g if isinstance(w, int)
+                         else not torch_equal(w, g)), want, got)))
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def restart_phase(gemma: dict, two: dict, counters) -> dict:
+    """Phase 8a: the phase-3 path through ``train.run`` with checkpoints:
+    a simulated failure at step 2, a resume from step 0, the resumed losses
+    against phase 3's, and the last checkpoint restored (read from the
+    disk, not the page cache) into fresh tensors against the run's final
+    state. Returns what 8b compares with."""
+    import gc
+
+    import torch
+    from repro_torch import checkpoint as ck
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_map
+    d = PHASE8_DIR / "restart"
+    d.mkdir(parents=True, exist_ok=True)
+    usage = shutil.disk_usage(d)
+    b4, b2 = state_bytes(gemma["config"]), state_bytes(two["config"])
+    print(f"8a disk at {d}: total {usage.total / 1e9:.1f} GB, free "
+          f"{usage.free / 1e9:.1f} GB; a checkpoint of the "
+          f"{gemma['config'].n_layers}-layer state is {b4 / 1e9:.2f} GB "
+          f"(12 B a parameter), {DISK_FACTOR}x that is "
+          f"{DISK_FACTOR * b4 / 1e9:.1f} GB", flush=True)
+    path = gemma
+    if usage.free < DISK_FACTOR * b4:
+        require(usage.free >= DISK_FACTOR * b2,
+                f"8a: {usage.free / 1e9:.1f} GB free, under {DISK_FACTOR}x "
+                f"even the 2-layer checkpoint ({b2 / 1e9:.2f} GB)")
+        print(f"8a: depth cut to {two['config'].n_layers} layers: the disk's "
+              f"free space is under {DISK_FACTOR}x the "
+              f"{gemma['config'].n_layers}-layer checkpoint", flush=True)
+        path = two
+    label = f"8a {path['label']}"
+    argv = [*path["argv"], "--ckpt-dir", str(d), "--ckpt-every", "100"]
+
+    # the first run: saves step 0, fails at step 2
+    args = train.build_argparser().parse_args([*argv, "--fail-at", "2"])
+    for c in counters.values():
+        c.launches = 0
+    try:
+        train.run(args, use_flash_kernel=True)
+    except RuntimeError as e:
+        if str(e) != "simulated node failure at step 2":
+            raise
+    else:
+        raise SmokeFailure("8a: --fail-at 2 did not stop the run")
+    crashed = counters["flash_attention"].launches
+    gc.collect()
+    print(f"{label}: the run with --fail-at 2 raised 'simulated node failure "
+          f"at step 2'; flash launches {crashed} (expected "
+          f"{2 * path['per_step']['attn']}); latest checkpoint step "
+          f"{ck.latest_step(str(d))}", flush=True)
+    require(crashed == 2 * path["per_step"]["attn"],
+            "8a: flash launch count is off on the failed run")
+    require(ck.latest_step(str(d)) == 0, "8a: no checkpoint of step 0")
+
+    # the same command again: restores step 0, runs steps 1-4, saves step 4
+    res = drive(f"{label} resumed", argv, counters, keep=True)
+    require(res["launches"]["flash_attention"]
+            == res["per_step"]["attn"] * res["steps"] and res["steps"] == 4,
+            "8a: the resumed run did not run steps 1-4 through flash")
+    rel = [abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                path["losses"][1:])]
+    print(f"{label}: resumed losses 1-4 against phase 3's "
+          + " ".join(f"{x:.6f}" for x in path["losses"][1:])
+          + f": largest relative difference {max(rel):.3e} (bound "
+          f"{RESTART_TOL})", flush=True)
+    require(max(rel) <= RESTART_TOL, "8a: the resumed losses moved")
+
+    result = res.pop("result")
+    final = {"params": result["params"], "opt_state": result["opt_state"]}
+    step_dir = d / "step_00000004"
+    nbytes = dir_bytes(step_dir)
+    save_s, warm_s = result["ckpt_seconds"][-1], result["restore_seconds"]
+    del result
+    fresh = tree_map(lambda x: torch.empty_like(x)
+                     if isinstance(x, torch.Tensor) else 0, final)
+    evict(step_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree, meta = ck.restore(str(d), fresh, step=4)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    bad = same_state(final, tree)
+    print(f"{label}: checkpoint of step 4 {nbytes} bytes ({nbytes / 1e9:.2f}"
+          f" GB); save {save_s:.3f} s ({nbytes / save_s / 1e9:.2f} GB/s); "
+          f"restore of step 0 in the resumed run {warm_s:.3f} s "
+          f"({nbytes / warm_s / 1e9:.2f} GB/s, warm: written seconds "
+          f"before); restore of step 4 into fresh tensors {cold_s:.3f} s "
+          f"({nbytes / cold_s / 1e9:.2f} GB/s, cold: evicted from the page "
+          f"cache first); leaves unequal to the run's final state: {bad}",
+          flush=True)
+    require(bad == 0 and meta["step"] == 4,
+            "8a: the restored state differs from the run's final state")
+    del final, fresh, tree
+    torch.cuda.empty_cache()
+    return {"bytes": nbytes, "warm_s": warm_s, "cold_s": cold_s,
+            "launches": {f"{label} failed run x 2 steps": crashed,
+                         f"{label} resumed x 4 steps":
+                         res["launches"]["flash_attention"]}}
+
+
+def calibrate_phase(restart: dict) -> None:
+    """Phase 8b: the port's ``CheckpointCostModel.calibrate`` on the same
+    disk, and its predicted restore of 8a's checkpoint."""
+    from repro_torch.core.faults import CheckpointCostModel
+    sizes = (1 << 24, 1 << 26, 1 << 28)
+    t0 = time.perf_counter()
+    model = CheckpointCostModel.calibrate(str(PHASE8_DIR / "calibrate"),
+                                          sizes=sizes)
+    pred = model.restore_cost(restart["bytes"])
+    warm, cold = restart["warm_s"], restart["cold_s"]
+    print(f"8b CheckpointCostModel.calibrate at {', '.join(map(str, sizes))} "
+          f"fp32 elements onto the card ({time.perf_counter() - t0:.1f} s; "
+          f"its reads are warm, each file written just before): alpha "
+          f"{model.alpha:.4e} s/B ({1 / max(model.alpha, 1e-30) / 1e9:.2f} "
+          f"GB/s), beta {model.beta:.4f} s; predicted restore of 8a's "
+          f"{restart['bytes'] / 1e9:.2f} GB checkpoint {pred:.3f} s against "
+          f"{warm:.3f} s measured warm ({pred / warm - 1:+.3f}) and "
+          f"{cold:.3f} s cold ({pred / cold - 1:+.3f})", flush=True)
+    require(all(math.isfinite(x) and x >= 0 for x in (model.alpha,
+                                                      model.beta)),
+            "8b: the fitted restore cost is not finite and non-negative")
+
+
+def async_phase(two: dict, counters) -> dict:
+    """Phase 8c: the 2-layer path with async SGD (staleness 2) and int8
+    compression, and synchronous with top-k; the payloads of one step's
+    gradients at full width, and one leaf compressed on the card against
+    the CPU. Returns the flash launches of the two runs."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.optim import make_compressor
+    from repro_torch.tree import leaves
+    launches = {}
+    runs = (("8c async tau=2 int8", ["--async-staleness", "2", "--compress",
+                                     "int8"], "int8"),
+            ("8c sync topk", ["--compress", "topk"], "topk"))
+    for label, extra, name in runs:
+        res = drive(label, [*two["argv"], *extra], counters, keep=True)
+        launches[f"{label} x {res['steps']} steps"] = \
+            res["launches"]["flash_attention"]
+        require(res["launches"]["flash_attention"]
+                == res["per_step"]["attn"] * res["steps"],
+                f"{label}: flash launch count is off")
+        if name == "int8":
+            print(f"{label}: step-0 loss {res['losses'][0]!r} against the "
+                  f"2-layer drive's {two['losses'][0]!r}", flush=True)
+            require(res["losses"][0] == two["losses"][0],
+                    f"{label}: step-0 loss is not the 2-layer drive's")
+        params, cfg = res.pop("result")["params"], res["config"]
+        torch.cuda.empty_cache()
+        data = SyntheticLM(cfg, two["args"].batch, two["args"].seq, seed=0)
+        batch = {k: v.cuda() for k, v in data.next_batch().items()}
+        grads, _ = make_grad_step(cfg)(params, batch)
+        comp = make_compressor(name)
+        err = comp.init(params)
+        compress_ms = cuda_ms(lambda: comp.compress(grads, err), iters=3)
+        payload, _ = comp.compress(grads, err)
+        decompress_ms = cuda_ms(lambda: comp.decompress(payload), iters=3)
+        sizes = [x.numel() for x in leaves(params)]
+        if name == "int8":
+            got, want = comp.wire_bytes(payload), sum(sizes) + 4 * len(sizes)
+            what = "wire bytes"
+        else:
+            got = sum(x.numel() for x in leaves(payload)
+                      if isinstance(x, torch.Tensor)
+                      and x.dtype == torch.int32)
+            want = sum(max(int(0.01 * n), 1) for n in sizes)
+            what = "indices"
+        wire, n = comp.wire_bytes(payload), sum(sizes)
+        print(f"{label}: one step's gradients of the final weights ({n} "
+              f"elements in {len(sizes)} leaves): compress "
+              f"{compress_ms:.3f} ms, decompress {decompress_ms:.3f} ms; "
+              f"{what} {got} (expected {want}); wire bytes {wire} "
+              f"({wire / (4 * n):.4f} of fp32)", flush=True)
+        require(got == want, f"{label}: {what} {got}, expected {want}")
+        del payload, err
+
+        # the card against the CPU on layer 0's MLP weight gradient
+        g0 = grads["scan"]["s0_attn"]["mlp"]["wi"][0].contiguous()
+        del grads
+        outs = []
+        for g in (g0, g0.cpu()):
+            pay, _ = comp.compress({"w": g}, comp.init({"w": g}))
+            outs.append({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                         for k, v in pay["w"].items()})
+        card, cpu = outs
+        eq = {k: torch_equal(v, cpu[k]) if isinstance(v, torch.Tensor)
+              else v == cpu[k] for k, v in card.items()}
+        print(f"{label}: {name} compress of layer 0's MLP weight gradient "
+              f"{tuple(g0.shape)} on the card against the CPU: "
+              + ", ".join(f"{k} {'equal' if e else 'DIFFERENT'}"
+                          for k, e in eq.items()), flush=True)
+        require(all(eq.values()),
+                f"{label}: the card's payload differs from the CPU's")
+        del params, g0, outs, card, cpu
+        torch.cuda.empty_cache()
+    return launches
+
+
+def optimizer_phase() -> None:
+    """Phase 8d: three updates of momentum, adamw_bf16 and adafactor on one
+    full-width leaf, card against CPU from the same numpy data; then an
+    adamw_bf16 state of that leaf saved and restored on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint as ck
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import leaves, tree_map
+    rng = np.random.default_rng(0)
+    p0 = rng.standard_normal(OPT_SHAPE, dtype=np.float32)
+    gs = [rng.standard_normal(OPT_SHAPE, dtype=np.float32) for _ in range(3)]
+    for name in ("momentum", "adamw_bf16", "adafactor"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            opt = make_optimizer(name, lr=1e-2)
+            p = {"w": torch.tensor(p0, device=dev)}
+            st = opt.init(p)
+            for g in gs:
+                p, st = opt.update({"w": torch.tensor(g, device=dev)}, st, p)
+            out[dev] = {"params": p, "opt_state": st}
+        card, cpu = out["cuda"], out["cpu"]
+        w, want = card["params"]["w"].cpu(), cpu["params"]["w"]
+        rel = ((w - want).norm() / want.norm()).item()
+        check_close(f"8d {name} {OPT_SHAPE} x 3 updates, card vs CPU params "
+                    f"(relative norm error {rel:.3e})", w, want, 1e-6)
+        # state: fp32 to 1e-6; bf16 moments to one bf16 step, since both
+        # devices round an fp32 value that may differ in its last bits
+        for x, y in zip(leaves(card["opt_state"]),
+                        leaves(cpu["opt_state"])):
+            if isinstance(x, int):
+                require(x == y == 3, f"8d {name}: step {x} vs {y}")
+                continue
+            tol = 2 ** -8 if x.dtype == torch.bfloat16 else 1e-6
+            check_close(f"8d {name} state {tuple(x.shape)} {x.dtype}, card "
+                        f"vs CPU", x.cpu(), y, tol)
+        if name == "adamw_bf16":
+            d = PHASE8_DIR / "bf16"
+            ck.save(str(d), 3, card)
+            fresh = tree_map(lambda x: torch.empty_like(x)
+                             if isinstance(x, torch.Tensor) else 0, card)
+            tree, _ = ck.restore(str(d), fresh)
+            bad = same_state(card, tree)
+            print(f"8d adamw_bf16 state of {OPT_SHAPE} saved and restored on "
+                  f"the card: moments {card['opt_state']['mu']['w'].dtype}, "
+                  f"{dir_bytes(d)} bytes on disk; leaves unequal: {bad}",
+                  flush=True)
+            require(bad == 0, "8d: the restored bf16 state differs")
+        del out, card, cpu
+    torch.cuda.empty_cache()
 
 
 def prefill_rows(inputs, kernel, plain) -> dict:
@@ -724,12 +1056,14 @@ def prefill_phase(counters) -> int:
     return launches["flash_attention"]
 
 
-def predict_phase(gemma: dict, counters) -> None:
-    """Phases 6a-6c: count, calibrate, predict (see the module docstring)."""
+def predict_phase(gemma: dict, counters) -> dict:
+    """Phases 6a-6c: count, calibrate, predict (see the module docstring);
+    returns the 2-layer path."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import gpu_adapter as ga
     from repro_torch.core.flop_count import (H100_SXM, count_step_flops,
+                                             count_train_flops,
                                              model_flops_train)
     from repro_torch.launch import whatif
     from repro_torch.models import transformer
@@ -840,17 +1174,30 @@ def predict_phase(gemma: dict, counters) -> None:
                 f"the {label} prediction is not within 2x of its step")
 
     # 6c: full gemma-7b over nodes of 8 GPUs (the DES runs take about a
-    # second, so in this process: no worker processes to start or stop)
+    # second, so in this process: no worker processes to start or stop).
+    # The utilization was taken against the counted FLOPs (head, remat
+    # recompute, attention), the DAG's segments hold only 6·P_layer·D: the
+    # what-if gets the utilization times the DAG's share of the 28-layer
+    # step's count (on fake tensors; FLOPs are linear in B at a fixed S)
     os.environ["REPRO_SWEEP_SERIAL"] = "1"
     wins = (64e6, 16e6, 4e6)
+    sp = whatif.SHAPES["train_4k"]
+    cfg28 = cfg4.replace(n_layers=get_config("gemma-7b").n_layers)
+    counted28 = count_train_flops(cfg28, 1, sp.seq_len)
+    ratio = counted28 / dag_flops(cfg28, one_gpu, sp.seq_len)
+    mfu28 = util / ratio
+    print(f"6c gemma-7b, 28 layers, one sequence of train_4k (S = "
+          f"{sp.seq_len}) counted on fake tensors: {counted28:.6e} FLOPs "
+          f"against the DAG's {counted28 / ratio:.6e}: ratio {ratio:.4f}; "
+          f"the what-if's mfu {util:.4f} / {ratio:.4f} = {mfu28:.4f}",
+          flush=True)
     rows = whatif.node_table("gemma-7b", "train_4k", [1, 2, 4],
                              gpus_per_node=8, straggler=1.3, compress=0.25,
-                             wins=wins, mfu=util)
-    cfg28, sp = get_config("gemma-7b"), whatif.SHAPES["train_4k"]
+                             wins=wins, mfu=mfu28)
     tokens28 = sp.seq_len * sp.global_batch
     print(f"6c gemma-7b, 28 layers, train_4k, 8 GPUs a node, mfu "
-          f"{util:.4f} (the DAG gives a GPU "
-          f"{dag_flops(cfg28, ga.MeshFactors(mfu=util), tokens28):.4e} "
+          f"{mfu28:.4f} (the DAG gives a GPU "
+          f"{dag_flops(cfg28, ga.MeshFactors(mfu=mfu28), tokens28):.4e} "
           f"FLOPs a step; 6·N·D / 8 is "
           f"{model_flops_train(cfg28, tokens28) / 8:.4e}):\n"
           + whatif.format_table(rows, 1.3, 0.25, wins), flush=True)
@@ -863,6 +1210,7 @@ def predict_phase(gemma: dict, counters) -> None:
             "the straggler column is shorter than the step")
     require(all(r[5] <= r[2] for r in rows),
             "compression lengthened the step")
+    return two
 
 
 def waterfill_phase() -> None:
@@ -996,9 +1344,11 @@ def model_on_off(arch: str, **overrides) -> None:
     require(lerr <= ltol and gerr <= gtol, f"{arch}: kernel path disagrees")
 
 
-def drive(label: str, argv, counters) -> dict:
+def drive(label: str, argv, counters, keep: bool = False) -> dict:
     """One training path through ``train.run`` with the kernels on; every
-    launch count is set to 0 just before and read just after."""
+    launch count is set to 0 just before and read just after. With
+    ``keep`` the returned dict holds ``run``'s result (its weights and
+    optimizer state stay on the card until the caller drops it)."""
     import torch
     from repro_torch.launch import train
     args = train.build_argparser().parse_args(argv)
@@ -1053,14 +1403,17 @@ def drive(label: str, argv, counters) -> dict:
           f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)  launches "
           + ", ".join(f"{k} {n}" for k, n in launches.items())
           + f" (expected a step: flash_attention {per_step['attn']}, "
-          f"rglru_scan {per_step['rglru']}; x {args.steps} steps)",
+          f"rglru_scan {per_step['rglru']}; x {result['steps']} steps)",
           flush=True)
     require(all(math.isfinite(x) for x in result["losses"]),
             f"non-finite loss on the {label} path")
-    return {"label": label, "args": args, "config": cfg,
+    path = {"label": label, "argv": list(argv), "args": args, "config": cfg,
             "launches": launches, "per_step": per_step,
-            "steps": args.steps, "losses": result["losses"],
-            "steady_ms": steady}
+            "steps": result["steps"], "losses": result["losses"],
+            "steady_ms": steady, "peak": peak}
+    if keep:
+        path["result"] = result
+    return path
 
 
 def profile_step(path: dict) -> None:

@@ -18,7 +18,7 @@ failure scenarios first-class DES inputs:
     engine, the cluster emulator, and across serial/parallel sweeps;
   * :class:`CheckpointCostModel` — the restore-time model charged on every
     worker restart (``beta + alpha * model_bytes``), calibratable against
-    a checkpoint manager's save/restore timings (ROADMAP 1.5).
+    ``repro_torch.checkpoint``'s restore timings.
 
 Both engines deliver incidents as ordinary calendar/timer events: a crash
 kills the worker's in-flight chunks and flows (wasted work), the restore
@@ -68,14 +68,45 @@ class CheckpointCostModel:
     @classmethod
     def calibrate(cls, ckpt_dir: str,
                   sizes: Sequence[int] = (1 << 16, 1 << 18, 1 << 20),
-                  beta_floor: float = 0.0) -> "CheckpointCostModel":
-        """Fit (alpha, beta) by timing real checkpoint round trips.
+                  beta_floor: float = 0.0,
+                  device="cuda") -> "CheckpointCostModel":
+        """Fit (alpha, beta) by timing real ``repro_torch.checkpoint`` round
+        trips on synthetic float32 trees of the given element counts.
 
-        The port has no checkpoint manager yet (ROADMAP 1.5), so this
-        raises; the reference fits against ``repro.checkpoint``."""
-        raise NotImplementedError(
-            "CheckpointCostModel.calibrate needs the port's checkpoint "
-            "manager, which is not ported yet: ROADMAP 1.5")
+        Measures the *restore* path (what a restarting worker pays: the
+        read and the copy onto ``device``, the card unless the caller asks
+        for the CPU) and least-squares fits time vs bytes; slope and
+        intercept are clamped to be non-negative.
+        """
+        import time
+
+        import torch
+
+        from repro_torch import checkpoint as ck
+        from repro_torch.device import require_device
+
+        dev = require_device(device)
+        xs: List[float] = []
+        ys: List[float] = []
+        for j, n in enumerate(sizes):
+            tree = {"p": torch.arange(int(n), dtype=torch.float32,
+                                      device=dev)}
+            d = f"{ckpt_dir}/cal_{j}"
+            ck.save(d, 0, tree)
+            t0 = time.perf_counter()
+            ck.restore(d, tree)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            xs.append(float(n) * 4.0)
+            ys.append(dt)
+        mx = sum(xs) / len(xs)
+        my = sum(ys) / len(ys)
+        var = sum((x - mx) ** 2 for x in xs)
+        cov = sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+        alpha = max(0.0, cov / var) if var > 0 else 0.0
+        beta = max(beta_floor, my - alpha * mx)
+        return cls(alpha=alpha, beta=beta)
 
 
 @dataclass(frozen=True)

@@ -66,6 +66,30 @@ def count_step_flops(step_fn: Callable, *args, **kwargs) -> int:
     return counter.get_total_flops()
 
 
+def count_train_flops(cfg, batch: int, seq: int) -> int:
+    """FLOPs of one AdamW training step of ``cfg`` at ``batch`` x ``seq``,
+    counted on fake tensors (``FakeTensorMode``): shapes only, nothing
+    allocated or computed, so a configuration too large for one card is
+    counted as its step would run. The tensors are fake CPU tensors, so the
+    flash op takes its plain path, whose count is the kernel's."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_map
+
+    with FakeTensorMode():
+        params = tree_map(lambda shape: torch.zeros(
+            shape, requires_grad=True), param_shapes(cfg))
+        opt = make_optimizer("adamw", lr=3e-4)
+        toks = torch.zeros((batch, seq), dtype=torch.long)
+        return count_step_flops(make_train_step(cfg, opt), params,
+                                opt.init(params), {"tokens": toks,
+                                                   "labels": toks})
+
+
 @dataclass
 class RooflineTerms:
     """All byte/FLOP quantities are PER DEVICE; ``chips`` is used only for

@@ -22,6 +22,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import require_device
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -267,10 +268,12 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_slots: int,
-                  window: int = 0, device="cpu") -> Params:
+                  window: int = 0, device="cuda") -> Params:
     """One stacked cache for ``n_slots`` attention layers, laid out
     (n_slots, B, S, n_kv, head_dim). Sliding-window layers keep a ring of
-    ``min(max_len, window)`` positions."""
+    ``min(max_len, window)`` positions. On the card unless ``device`` says
+    otherwise; raises when CUDA is asked for and missing."""
+    device = require_device(device)
     s = min(max_len, window) if window > 0 else max_len
     shape = (n_slots, batch, s, cfg.n_kv, cfg.head_dim)
     dt = dtype_of(cfg.dtype)

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import require_device
 from repro_torch.kernels.ref import rglru_scan_ref
 from .config import ModelConfig
 from .layers import Params, dense_init
@@ -101,7 +102,10 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.einsum("...r,rd->...d", h, p["rg_out"]["wo"].to(dt))
 
 
-def init_rglru_state(cfg: ModelConfig, batch: int, device="cpu") -> Params:
+def init_rglru_state(cfg: ModelConfig, batch: int, device="cuda") -> Params:
+    """Zero fp32 carry and conv state, on the card unless ``device`` says
+    otherwise; raises when CUDA is asked for and missing."""
+    device = require_device(device)
     r = cfg.rnn_width
     return {"h": torch.zeros((batch, r), device=device),
             "conv": torch.zeros((batch, cfg.conv_width - 1, r),

@@ -32,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import require_device
 from repro_torch.tree import leaves, tree_map
 from . import recurrent as rec
 from .config import ModelConfig
@@ -338,10 +339,12 @@ def _slot_state(kind: str, cfg: ModelConfig, batch: int, max_len: int,
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device="cpu") -> Params:
+                      device="cuda") -> Params:
     """Zero decode state laid out as the reference's: ``pos`` (0-d int32),
     stacked group slots under ``"scan"`` with a leading ``n_groups`` axis,
-    the remainder under ``"tail"``."""
+    the remainder under ``"tail"``. On the card unless ``device`` says
+    otherwise; raises when CUDA is asked for and missing."""
+    device = require_device(device)
     state: Params = {"pos": torch.zeros((), dtype=torch.int32,
                                         device=device)}
     if cfg.n_groups > 0:

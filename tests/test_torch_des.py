@@ -8,10 +8,13 @@ every comparison here is exact: the same step completions and the same
 trace records, field for field.  Random step DAGs are built with each
 package's own ``Op``/``StepTemplate``, as in ``test_engine_equivalence``.
 """
+import json
+import math
 import random
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import bandwidth as ref_bw
 from repro.core import events as ref_events
@@ -187,9 +190,26 @@ def test_parallel_map_serial_equals_parallel(monkeypatch):
         == [x * x for x in items]
 
 
-def test_unported_dependencies_raise_naming_their_roadmap_item(tmp_path):
+def test_unported_dependencies_raise_naming_their_roadmap_item():
     trace = run(PORT, 0, "fifo", 1)
     with pytest.raises(NotImplementedError, match="ROADMAP 1.16"):
         trace.to_chrome_trace()
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.5"):
-        port_faults.CheckpointCostModel.calibrate(str(tmp_path))
+
+
+def test_checkpoint_cost_model_calibrates_on_the_ports_manager(tmp_path,
+                                                               monkeypatch):
+    """The reference's fit over timed restores of the port's checkpoints:
+    non-negative finite terms, one checkpoint a size in the reference's
+    layout; the card unless the caller asks for the CPU."""
+    model = port_faults.CheckpointCostModel.calibrate(
+        str(tmp_path), sizes=(1 << 10, 1 << 14, 1 << 16), device="cpu")
+    assert math.isfinite(model.alpha) and model.alpha >= 0
+    assert math.isfinite(model.beta) and model.beta >= 0
+    for j, n in enumerate((1 << 10, 1 << 14, 1 << 16)):
+        with open(tmp_path / f"cal_{j}" / "step_00000000" /
+                  "manifest.json") as f:
+            assert json.load(f)["leaves"] == [
+                {"index": 0, "dtype": "float32", "shape": [n]}]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_faults.CheckpointCostModel.calibrate(str(tmp_path / "card"))

@@ -178,6 +178,14 @@ def test_step_flops_match_the_compiled_jax_step(arch, flash):
     assert got == pytest.approx(want, rel=1e-6)
 
 
+@pytest.mark.parametrize("flash", [False, True])
+def test_step_flops_on_fake_tensors_equal_the_cpu_count(flash):
+    """``count_train_flops`` counts on fake tensors, with nothing
+    allocated, what the same step counts on real CPU tensors."""
+    cfg, want = _port_step_flops("gemma-7b", flash)
+    assert flop_count.count_train_flops(cfg, 2, S) == want
+
+
 @pytest.mark.parametrize("shape", [(2, 256, 4, 2, 16, 256),
                                    (1, 128, 8, 8, 64, 384),
                                    (2, 256, 16, 16, 256, 256)])

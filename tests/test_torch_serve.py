@@ -72,7 +72,8 @@ def test_decode_attention_steps(window, max_len):
     jp = jl.init_attention(KEY, jc)
     tp = carried(jp)
     jcache = jl.init_kv_cache(jc, 2, max_len, 1, window=window)
-    tcache = tl.init_kv_cache(tc, 2, max_len, 1, window=window)
+    tcache = tl.init_kv_cache(tc, 2, max_len, 1, window=window,
+                              device="cpu")
     assert {k: tuple(v.shape) for k, v in tcache.items()} == \
         {k: v.shape for k, v in jcache.items()}
     jk, jv = jcache["k"][0], jcache["v"][0]
@@ -129,7 +130,7 @@ def test_step_rglru_steps():
     jp = jr.init_rglru(KEY, jc)
     tp = carried(jp)
     jst = jr.init_rglru_state(jc, 2)
-    tst = tr.init_rglru_state(tc, 2)
+    tst = tr.init_rglru_state(tc, 2, device="cpu")
     step = jax.jit(lambda p, x, s: jr.step_rglru(p, x, s, jc))
     for i in range(12):
         x = normal((2, 1, jc.d_model), seed=i)
@@ -149,7 +150,7 @@ def serve_both(arch, steps, **kw):
     jc, tc, jp, tp = setup(arch, **kw)
     toks = tokens(jc.vocab, 2, steps)
     jstate = jt.init_decode_state(jc, 2, steps)
-    tstate = tt.init_decode_state(tc, 2, steps)
+    tstate = tt.init_decode_state(tc, 2, steps, device="cpu")
     jstep = jax.jit(lambda p, s, t: jt.serve_step(p, s, t, jc))
     for i in range(steps):
         jl_, jstate = jstep(jp, jstate, jnp.asarray(toks[:, i], jnp.int32))
@@ -194,6 +195,58 @@ def test_serve_step_bf16_gemma_matches_jax():
         logits_close(got, want, vocab, 2e-2)
 
 
+def test_serve_step_bf16_weak_scalars_bit_equal_jax(monkeypatch):
+    """The two weak scalars of a bf16 ``serve_step`` bit for bit: the
+    embedding scale sqrt(96) (9.80 in fp32, 9.8125 in bf16) and a softcap
+    of 5.3 (5.3125 in bf16). The blocks' weights are zero, so each block
+    adds an exact 0 and the final norm sees the scaled embedding; the two
+    tokens' embedding rows have one nonzero each, so every logit is one
+    product, exact in both packages, and the softcap is the only rounding
+    after the norm."""
+    jc, tc, jp, _ = setup("gemma-7b", dtype="bfloat16", d_model=96,
+                          head_dim=24, logits_softcap=5.3)
+    rng = np.random.default_rng(11)
+    np_params = jax.tree_util.tree_map(np.asarray, jp)
+    np_params["scan"] = jax.tree_util.tree_map(np.zeros_like,
+                                               np_params["scan"])
+    toks = np.array([3, 200])
+    embed = (rng.standard_normal(np_params["embed"].shape) * 0.4).astype(
+        np.float32)
+    embed[toks] = 0.0
+    embed[toks, [5, 60]] = [0.7, -1.3]
+    np_params["embed"] = embed
+    jp = jax.tree_util.tree_map(jnp.asarray, np_params)
+    tp = params_from_numpy(np_params, "cpu")
+
+    def recording(module, params, seen):
+        real = module.apply_norm
+
+        def apply_norm(p, x, cfg):
+            if p is params["final_norm"]:
+                seen.append(x)
+            return real(p, x, cfg)
+        monkeypatch.setattr(module, "apply_norm", apply_norm)
+
+    jseen, tseen = [], []
+    recording(jt, jp, jseen)
+    recording(tt, tp, tseen)
+    jlogits, _ = jt.serve_step(jp, jt.init_decode_state(jc, 2, 4),
+                               jnp.asarray(toks, jnp.int32), jc)
+    tlogits, _ = tt.serve_step(tp, tt.init_decode_state(tc, 2, 4,
+                                                        device="cpu"),
+                               torch.from_numpy(toks), tc)
+
+    def bits(x):
+        if isinstance(x, torch.Tensor):
+            return x.view(torch.int16).numpy()
+        return np.asarray(x).view(np.int16)
+
+    assert tseen[0].dtype == tlogits.dtype == torch.bfloat16
+    np.testing.assert_array_equal(bits(tseen[0]), bits(jseen[0]))
+    assert np.abs(np.asarray(jlogits, np.float32)[:, :tc.vocab]).max() > 4
+    np.testing.assert_array_equal(bits(tlogits), bits(jlogits))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_teacher_forced_matches_forward(arch):
     """The reference's bound (``test_models.py``), on the port alone, over
@@ -204,7 +257,7 @@ def test_decode_teacher_forced_matches_forward(arch):
     toks = torch.from_numpy(tokens(tc.vocab, b, s, seed=3))
     with torch.no_grad():
         full, _ = tt.forward(tp, {"tokens": toks}, tc)
-    state = tt.init_decode_state(tc, b, s)
+    state = tt.init_decode_state(tc, b, s, device="cpu")
     for i in range(s):
         li, state = tt.serve_step(tp, state, toks[:, i], tc)
         logits_close(li, full[:, i].numpy(), tc.vocab, 2e-2)
@@ -214,7 +267,7 @@ def test_decode_teacher_forced_matches_forward(arch):
 def test_serve_step_writes_the_cache_in_place():
     tc = get_config("recurrentgemma-2b", smoke=True)
     tp = tt.init_params(torch.Generator().manual_seed(0), tc)
-    state = tt.init_decode_state(tc, 2, 12)
+    state = tt.init_decode_state(tc, 2, 12, device="cpu")
     ptrs = [x.data_ptr() for x in leaves({k: state[k]
                                           for k in ("scan", "tail")})]
     for i in range(3):
@@ -247,7 +300,7 @@ def test_decode_state_shapes_match_jax(arch):
 def test_unported_kinds_raise(arch, item):
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tt.init_decode_state(cfg, 2, 8)
+        tt.init_decode_state(cfg, 2, 8, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tt.serve_step({}, {"pos": torch.zeros((), dtype=torch.int32)},
                       torch.zeros(2, dtype=torch.long), cfg)
@@ -269,8 +322,10 @@ def test_prefill_step_equals_forward():
 def test_serve_step_factory_is_serve_step():
     _, tc, _, tp = setup("gemma-7b")
     tok = torch.tensor([1, 2])
-    a, _ = make_serve_step(tc)(tp, tt.init_decode_state(tc, 2, 4), tok)
-    b, _ = tt.serve_step(tp, tt.init_decode_state(tc, 2, 4), tok, tc)
+    a, _ = make_serve_step(tc)(
+        tp, tt.init_decode_state(tc, 2, 4, device="cpu"), tok)
+    b, _ = tt.serve_step(tp, tt.init_decode_state(tc, 2, 4, device="cpu"),
+                         tok, tc)
     assert torch.equal(a, b)
 
 
@@ -342,7 +397,7 @@ def test_serve_run_layers_and_what_it_served(arch, layers):
     assert cfg.n_layers == layers
     assert res["prompts"].shape == (2, 8)
     toks = torch.cat([res["prompts"], res["ids"]], dim=1)
-    state = tt.init_decode_state(cfg, 2, 16)
+    state = tt.init_decode_state(cfg, 2, 16, device="cpu")
     greedy = []
     for i in range(16):
         logits, state = tt.serve_step(res["params"], state, toks[:, i], cfg)

@@ -51,11 +51,18 @@ def test_five_adamw_steps_track_jax(arch):
     assert tst["step"] == int(jst["step"]) == 5
 
 
-@pytest.mark.parametrize("name", ["sgd", "adam", "adamw"])
+@pytest.mark.parametrize("name", ["sgd", "momentum", "adam", "adamw",
+                                  "adamw_bf16", "adafactor"])
 def test_one_update_matches_jax(name):
+    """Three updates of each optimizer from one init, params and state
+    against JAX at 1e-6, on a vector, a matrix and a stacked (2, 6, 5) leaf
+    (adafactor factors the last two axes: rows (2, 6), columns (2, 5)).
+    bf16 moments agree to one bf16 step (2^-8 relative): both packages
+    round the same fp32 value, which may differ in its last fp32 bits."""
     rng = np.random.default_rng(0)
     params = {"a": {"w": rng.standard_normal((8, 4)).astype(np.float32)},
-              "b": rng.standard_normal((4,)).astype(np.float32)}
+              "b": rng.standard_normal((4,)).astype(np.float32),
+              "c": rng.standard_normal((2, 6, 5)).astype(np.float32)}
     grads = tree_map(lambda x: rng.standard_normal(x.shape).astype(np.float32),
                      params)
     jopt, topt = jax_optimizer(name, lr=1e-2), make_optimizer(name, lr=1e-2)
@@ -68,6 +75,18 @@ def test_one_update_matches_jax(name):
         tp, tst = topt.update(tg, tst, tp)
     tree_map(lambda t, j: np.testing.assert_allclose(
         t.detach().numpy(), np.asarray(j), atol=1e-6, rtol=1e-6), tp, jp)
+
+    def same_state(t, j):
+        if isinstance(t, int):
+            assert t == int(j) == 3
+            return
+        assert tuple(t.shape) == j.shape
+        assert str(t.dtype).split(".")[1] == str(j.dtype)
+        tol = 2 ** -8 if t.dtype == torch.bfloat16 else 1e-6
+        np.testing.assert_allclose(t.float().numpy(),
+                                   np.asarray(j, np.float32), atol=tol,
+                                   rtol=tol)
+    tree_map(same_state, tst, jst)
 
 
 def test_adamw_defaults_match_jax():
