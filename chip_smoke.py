@@ -93,7 +93,26 @@ for each source, all started together), then
           against the CPU (equal payloads);
        d. three updates of momentum, adamw_bf16 and adafactor on one
           (3072, 24576) leaf, card against CPU (1e-6), and an adamw_bf16
-          state of it saved and restored bit-equal.
+          state of it saved and restored bit-equal;
+  9. xlstm-350m, whose sLSTM and mLSTM blocks are plain PyTorch (no kernel:
+     the reference has none there either):
+       a. the smoke model (4 layers, d_model 64, fp32, S = 64) on the card
+          against the CPU from the same numpy weights and batch: loss within
+          1e-5 relative, every gradient within 1e-4; as configured, then
+          with remat and a time chunk of 16;
+       b. trains at full width and depth (24 layers, d_model 1024, vocab
+          50304) through ``train.run``, 3 AdamW steps at B = 4, S = 128,
+          bf16, remat, with the launch counts set to 0 just before and read
+          just after (both stay 0), and holds its step-1 loss to the
+          recorded one;
+       c. profiles one more step of that run: kernels a step and a layer
+          and time step, device busy against the unprofiled step;
+       d. serves it as phase 7 does (B = 8, 128 + 128 tokens, the
+          teacher-forced bound);
+       e. runs 9b's path with a checkpoint every step, failed at step 2,
+          then resumed: losses 1-3 within 1e-4 relative of 9b's, the
+          checkpoint's bytes and save and restore seconds (in
+          ``build/phase9/``, removed at the end).
 
 Each result is printed as it comes; the line before the card's name is one
 JSON object with the kernels, and the last line is
@@ -153,12 +172,25 @@ KERNEL_GROUPS = [
     ("copy/cast", ("copy",)),
     ("elementwise", ("elementwise",)),
 ]
+XLSTM = "xlstm-350m"
+# xlstm-350m at full width and depth: 24 layers, 242,394,208 parameters,
+# 3.88 GB of state. S is cut from 2048 to 128: its blocks are a Python
+# loop over time on the card, 96 kernels a layer and time step with remat
+# and the backward pass, and at S = 256 a step took 19.5 s (NVIDIA H100
+# 80GB HBM3, 700 W)
+XLSTM_ARGV = ["--arch", XLSTM, "--full", "--batch", "4", "--seq", "128",
+              "--steps", "3", "--device", "cuda", "--log-every", "1"]
+XLSTM_SMOKE_SEQ = 64                    # 9a: the smoke model, card vs CPU
+# phase 9e's checkpoints, removed when the phase ends, passed or failed
+PHASE9_DIR = ROOT / "build" / "phase9"
+LOSS_LINE = re.compile(r"^step\s+\d+ loss\s+(\S+)", re.M)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SCAN_TOL = 3e-5     # the reference's tolerance for the RG-LRU scan
 DTYPES = ("float32", "bfloat16")
-# Step-1 losses of the two seeded paths as PERF.md records them (the same
-# seeds, the same data; a kernel that is right moves them by far less).
-STEP1_LOSS = {"gemma-7b": 13.2019, "recurrentgemma-2b": 12.9457}
+# Step-1 losses of the seeded training paths as PERF.md records them (the
+# same seeds, the same data; a kernel that is right moves them by far less).
+STEP1_LOSS = {"gemma-7b": 13.2019, "recurrentgemma-2b": 12.9457,
+              XLSTM: 11.3643}
 STEP1_TOL = 0.01
 
 
@@ -497,6 +529,18 @@ def main() -> int:
     finally:
         shutil.rmtree(PHASE8_DIR, ignore_errors=True)
 
+    # -- phase 9: xlstm-350m at full width and depth, no kernel -------------
+    xlstm_card_vs_cpu()
+    try:
+        xlstm = xlstm_phase(counters)
+    finally:
+        shutil.rmtree(PHASE9_DIR, ignore_errors=True)
+    got = xlstm["losses"][0]
+    print(f"9b {XLSTM} step-1 loss {got:.4f} vs recorded {STEP1_LOSS[XLSTM]}"
+          f" (tol {STEP1_TOL})")
+    require(abs(got - STEP1_LOSS[XLSTM]) <= STEP1_TOL,
+            f"{XLSTM}: step-1 loss moved")
+
     flash_launches = {"train gemma-7b 4 layers x 5 steps":
                       gemma["launches"]["flash_attention"],
                       "prefill gemma-7b 28 layers x 3 runs": prefill_launches,
@@ -830,6 +874,142 @@ def optimizer_phase() -> None:
     torch.cuda.empty_cache()
 
 
+def xlstm_card_vs_cpu() -> None:
+    """Phase 9a: the xlstm-350m smoke model (4 layers, d_model 64, fp32,
+    S = 64) on the card against the CPU, from the same numpy weights and
+    batch: the loss within 1e-5 relative and every gradient within 1e-4;
+    as configured, then with remat and a time chunk of 16 (the chunked
+    time scan under the group remat)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves
+    base = get_config(XLSTM, smoke=True)
+    weights = params_to_numpy(transformer.init_params(
+        torch.Generator().manual_seed(3), base))
+    toks = np.random.default_rng(4).integers(
+        0, base.vocab, (2, XLSTM_SMOKE_SEQ + 1))
+    for over in ({}, {"remat": True, "time_chunk": 16}):
+        cfg = base.replace(**over)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            params = params_from_numpy(weights, dev)
+            t = torch.from_numpy(toks).to(dev)
+            loss, _ = transformer.loss_fn(
+                params, {"tokens": t[:, :-1], "labels": t[:, 1:]}, cfg)
+            grads = torch.autograd.grad(loss, list(leaves(params)))
+            res[dev] = (loss.item(), [g.cpu() for g in grads])
+        (card, gcard), (cpu, gcpu) = res["cuda"], res["cpu"]
+        rel = abs(card - cpu) / abs(cpu)
+        gerr = max(((a - b).abs() / (1 + b.abs())).max().item()
+                   for a, b in zip(gcard, gcpu))
+        print(f"9a {XLSTM} smoke (layers {cfg.n_layers}, d_model "
+              f"{cfg.d_model}, {cfg.dtype}, S={XLSTM_SMOKE_SEQ}, remat "
+              f"{cfg.remat}, time_chunk {cfg.time_chunk}) card vs CPU: loss "
+              f"{card:.7f} vs {cpu:.7f} (rel {rel:.2e}, tol 1e-5); "
+              f"{len(gcpu)} gradients, max |card - CPU| / (1 + |CPU|) "
+              f"{gerr:.2e} (tol 1e-4)", flush=True)
+        require(rel <= 1e-5 and gerr <= 1e-4,
+                f"9a: {XLSTM} on the card differs from the CPU")
+
+
+def xlstm_phase(counters) -> dict:
+    """Phases 9b-9e: xlstm-350m at full width and depth through
+    ``train.run`` (3 steps, launch counts set to 0 just before and read
+    just after: the path runs neither kernel), a profile of one more step
+    of that run, decode through ``serve.run`` (``serve_phase``), and a run
+    failed at step 2 and resumed. Returns the 9b path."""
+    import torch
+    path = drive(f"9b {XLSTM}", XLSTM_ARGV, counters, keep=True)
+    require(all(n == 0 for n in path["launches"].values()),
+            f"9b: the {XLSTM} path launched a kernel")
+    cfg, args = path["config"], path["args"]
+    print(f"9b {XLSTM}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}, vocab "
+          f"{cfg.vocab} padded to {cfg.padded_vocab}; ms a step "
+          f"{path['steady_ms']:.1f} (median of steps 2-3), tokens/s "
+          f"{args.batch * args.seq / path['steady_ms'] * 1e3:.1f}, peak "
+          f"{path['peak'] / 1e9:.2f} GB, step-1 loss "
+          f"{path['losses'][0]:.4f}", flush=True)
+
+    # 9c: one more step of the same run, profiled
+    result = path.pop("result")
+    busy, kernels = profile_step(path, result)
+    del result
+    torch.cuda.empty_cache()
+    steps = cfg.n_layers * args.seq
+    print(f"9c {XLSTM}: {kernels} device kernels a step, "
+          f"{kernels / steps:.1f} a layer and time step; device busy "
+          f"{busy:.1f} ms against the unprofiled {path['steady_ms']:.1f} ms "
+          f"a step ({1 - busy / path['steady_ms']:.3f} idle)", flush=True)
+
+    # gated in fp32: in bf16, 24 recurrent layers carry each rounding that
+    # a product's shape changes, and forward's own rows differ by more than
+    # the bound between B = 1 and B = 8 (printed beside the bf16 error)
+    serve_phase("9d", XLSTM, counters, gate_dtype="float32")
+    xlstm_restart(path, counters)
+    return path
+
+
+def xlstm_restart(path: dict, counters) -> None:
+    """Phase 9e: 9b's path with a checkpoint every step, failed at step 2
+    (it saves steps 0 and 1, then raises), then resumed (restores step 1,
+    runs step 2): losses 1-3 against 9b's within the restart bound (the
+    failed run's two as it prints them, to 4 decimals)."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch import checkpoint as ck
+    from repro_torch.launch import train
+    argv = [*XLSTM_ARGV, "--ckpt-dir", str(PHASE9_DIR), "--ckpt-every", "1"]
+    for c in counters.values():
+        c.launches = 0
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            train.run(train.build_argparser().parse_args(
+                [*argv, "--fail-at", "2"]), use_flash_kernel=True)
+    except RuntimeError as e:
+        if str(e) != "simulated node failure at step 2":
+            raise
+    else:
+        raise SmokeFailure("9e: --fail-at 2 did not stop the run")
+    finally:
+        sys.stdout.write(out.getvalue())
+    first = [float(x) for x in LOSS_LINE.findall(out.getvalue())]
+    latest = ck.latest_step(str(PHASE9_DIR))
+    print(f"9e {XLSTM}: the run with --fail-at 2 raised 'simulated node "
+          f"failure at step 2' after losses {first}; latest checkpoint step "
+          f"{latest}", flush=True)
+    require(len(first) == 2 and latest == 1,
+            "9e: the failed run did not save steps 0 and 1")
+    torch.cuda.empty_cache()
+    res = drive(f"9e {XLSTM} resumed", argv, counters, keep=True)
+    result = res.pop("result")
+    losses = first + res["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, path["losses"])]
+    step_dir = PHASE9_DIR / "step_00000002"
+    nbytes, want = dir_bytes(step_dir), state_bytes(path["config"])
+    save_s, restore_s = result["ckpt_seconds"][-1], result["restore_seconds"]
+    del result
+    print(f"9e {XLSTM}: losses 1-3 " + " ".join(f"{x:.6f}" for x in losses)
+          + " against 9b's " + " ".join(f"{x:.6f}" for x in path["losses"])
+          + f": largest relative difference {max(rel):.3e} (bound "
+          f"{RESTART_TOL}); checkpoint of step 2 {nbytes} bytes "
+          f"({nbytes / 1e9:.2f} GB; 12 B a parameter is {want / 1e9:.2f} "
+          f"GB), save {save_s:.3f} s ({nbytes / save_s / 1e9:.2f} GB/s), "
+          f"restore of step 1 {restore_s:.3f} s "
+          f"({nbytes / restore_s / 1e9:.2f} GB/s)", flush=True)
+    require(len(losses) == 3 and res["steps"] == 1
+            and max(rel) <= RESTART_TOL, "9e: the resumed losses moved")
+    require(all(n == 0 for n in res["launches"].values()),
+            "9e: the resumed run launched a kernel")
+    torch.cuda.empty_cache()
+
+
 def prefill_rows(inputs, kernel, plain) -> dict:
     """Phase 1a at the prefill shape: the kernel's first and last
     ``PREFILL_ROWS`` rows against the plain version (the last rows right-
@@ -882,9 +1062,36 @@ def prefill_rows(inputs, kernel, plain) -> dict:
             "bound_ms": bound_ms, "library_ms": lib}
 
 
-def serve_phase(label: str, arch: str, counters) -> None:
-    """Phases 7a and 7b: ``serve.run`` at full width and depth, then decode
-    with teacher forcing against ``forward`` at full depth."""
+def teacher_forced(params, cfg, toks):
+    """``serve_step`` over ``toks`` (B, T) from a fresh state of length T,
+    each position's logits against ``forward``'s on the same tokens, over
+    the real vocab. Returns the max error at each position (on the host),
+    ``forward``'s logits, the decode's argmax (B, T) on the host and the
+    final decode state."""
+    import torch
+    from repro_torch.models import transformer
+    b, t = toks.shape
+    with torch.inference_mode():
+        full = transformer.forward(params, {"tokens": toks}, cfg)[0]
+    full = full[..., :cfg.vocab]
+    state = transformer.init_decode_state(cfg, b, t, "cuda")
+    errs, greedy = [], []
+    for i in range(t):
+        li, state = transformer.serve_step(params, state, toks[:, i], cfg)
+        errs.append((li[:, :cfg.vocab].float() - full[:, i].float())
+                    .abs().max())
+        greedy.append(li.argmax(-1))
+    return (torch.stack(errs).cpu(), full, torch.stack(greedy, 1).cpu(),
+            state)
+
+
+def serve_phase(label: str, arch: str, counters,
+                gate_dtype: str = "") -> None:
+    """Phases 7a, 7b and 9d: ``serve.run`` at full width and depth, then
+    decode with teacher forcing against ``forward`` at full depth, gated at
+    the reference's bound in ``gate_dtype`` when it is given (the served
+    dtype's error is then printed beside the forward's own spread), else
+    in the served dtype."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import transformer
@@ -927,37 +1134,44 @@ def serve_phase(label: str, arch: str, counters) -> None:
     # teacher forcing on what was served: the same weights, a state of the
     # served max_len, the prompt and the generated ids fed through
     # serve_step; every position's logits held to forward's on the same
-    # tokens (the reference's test_decode_matches_forward_teacher_forced)
+    # tokens (the reference's test_decode_matches_forward_teacher_forced),
+    # in ``gate_dtype`` where it is given, then in the served dtype
     max_len = args.prompt_len + args.gen
     toks = torch.cat([prompts, ids.to(prompts.device)], dim=1)
-    with torch.inference_mode():
-        full, _ = transformer.forward(params, {"tokens": toks}, cfg)
-    state = transformer.init_decode_state(cfg, args.batch, max_len, "cuda")
-    errs, greedy = [], []
-    for i in range(max_len):
-        li, state = transformer.serve_step(params, state, toks[:, i], cfg)
-        errs.append((li[:, :cfg.vocab].float()
-                     - full[:, i, :cfg.vocab].float()).abs().max())
-        greedy.append(li.argmax(-1))
-    errs = torch.stack(errs).cpu()
-    err = errs.max().item()
-    # the served ids against the argmax of these logits (informational)
-    same = (torch.stack(greedy[args.prompt_len - 1:-1], dim=1).cpu()
-            == ids).float().mean().item()
-    # over the real vocab: a padded tail holds -finfo.max / 2
-    scale = full[..., :cfg.vocab].float().abs().max().item()
-    tol = 2e-2 * max(scale, 1.0)
-    print(f"{label} serve {arch}: teacher-forced decode vs forward over the "
-          f"served {max_len} tokens (prompt + generated) at B={args.batch}, "
-          f"same weights, max_len {max_len}: max_abs_err {err:.4e} (prompt "
-          f"positions {errs[:args.prompt_len].max().item():.4e}, generated "
-          f"{errs[args.prompt_len:].max().item():.4e}), max |logits| "
-          f"{scale:.3f}, bound {tol:.4e} {'ok' if err < tol else 'FAIL'}; "
-          f"served ids equal to this decode's argmax: {same:.4f}",
-          flush=True)
-    require(math.isfinite(err) and err < tol,
-            f"{label}: decode disagrees with forward")
-    del full, li, greedy
+    gate = cfg.replace(dtype=gate_dtype) if gate_dtype else cfg
+    for c in (gate, cfg) if gate_dtype else (cfg,):
+        errs, full, greedy, state = teacher_forced(params, c, toks)
+        err = errs.max().item()
+        # over the real vocab: a padded tail holds -finfo.max / 2
+        scale = full.float().abs().max().item()
+        tol = 2e-2 * max(scale, 1.0)
+        # the served ids against the argmax of these logits (informational)
+        same = (greedy[:, args.prompt_len - 1:-1] == ids).float().mean()
+        line = (f"{label} serve {arch}: teacher-forced decode vs forward in "
+                f"{c.dtype} over the served {max_len} tokens (prompt + "
+                f"generated) at B={args.batch}, same weights, max_len "
+                f"{max_len}: max_abs_err {err:.4e} (prompt positions "
+                f"{errs[:args.prompt_len].max().item():.4e}, generated "
+                f"{errs[args.prompt_len:].max().item():.4e}), max |logits| "
+                f"{scale:.3f}, bound {tol:.4e}")
+        if c is not gate:
+            # not gated: the served dtype's forward disagrees with itself
+            # by more than the bound when only the batch changes
+            with torch.inference_mode():
+                one, _ = transformer.forward(params, {"tokens": toks[:1]}, c)
+            spread = (one[0, :, :c.vocab].float()
+                      - full[0].float()).abs().max().item()
+            print(f"{line}, not gated; forward of row 0 alone against its "
+                  f"row at B={args.batch}: max_abs_err {spread:.4e}; served "
+                  f"ids equal to this decode's argmax: {same:.4f}",
+                  flush=True)
+            del one
+            continue
+        print(f"{line} {'ok' if err < tol else 'FAIL'}; served ids equal to "
+              f"this decode's argmax: {same:.4f}", flush=True)
+        require(math.isfinite(err) and err < tol,
+                f"{label}: decode disagrees with forward")
+    del full, greedy
 
     # the host's share of a token step: time to enqueue one step with the
     # device idle, against the same step synchronised (a gap near 0 means
@@ -1416,10 +1630,13 @@ def drive(label: str, argv, counters, keep: bool = False) -> dict:
     return path
 
 
-def profile_step(path: dict) -> None:
+def profile_step(path: dict, result: dict = None):
     """Device time of one steady training step of a path, by kernel, and
     the share of the step's host wall time the device was idle (the
-    profiler's own host cost makes that share an upper bound)."""
+    profiler's own host cost makes that share an upper bound). With
+    ``result`` (``train.run``'s) the step continues that run, else it
+    follows two warm-up steps from a fresh init. Returns the device-busy
+    ms and the kernel count of the step."""
     import torch
     from repro_torch.configs import get_optimizer_name
     from repro_torch.data import SyntheticLM
@@ -1432,9 +1649,12 @@ def profile_step(path: dict) -> None:
     opt = make_optimizer(args.optimizer or get_optimizer_name(args.arch),
                          lr=args.lr)
     data = SyntheticLM(cfg, args.batch, args.seq, seed=args.seed)
-    params = init_params(
-        torch.Generator(device="cuda").manual_seed(args.seed), cfg)
-    state = opt.init(params)
+    if result is None:
+        params = init_params(
+            torch.Generator(device="cuda").manual_seed(args.seed), cfg)
+        state = opt.init(params)
+    else:
+        params, state = result["params"], result["opt_state"]
     step_fn = make_train_step(cfg, opt)
 
     def step():
@@ -1443,11 +1663,12 @@ def profile_step(path: dict) -> None:
         params, state, metrics = step_fn(params, state, batch)
         return float(metrics["loss"])
 
-    for _ in range(2):
-        step()
+    if result is None:          # a fresh init: two warm-up steps first
+        for _ in range(2):
+            step()
     prof, wall_ms = profiled(step)
     del params, state
-    report_profile(f"{label} profile of one step", prof, wall_ms)
+    return report_profile(f"{label} profile of one step", prof, wall_ms)
 
 
 def profiled(fn, n: int = 1):
@@ -1466,22 +1687,27 @@ def profiled(fn, n: int = 1):
     return prof, wall_ms
 
 
-def report_profile(label: str, prof, wall_ms: float) -> None:
+def report_profile(label: str, prof, wall_ms: float):
     """Device time by kernel group and the top kernels of a profile, and
     the share of the wall time the device was idle (the profiler's own
-    host cost makes that share an upper bound)."""
+    host cost makes that share an upper bound). Returns the device-busy ms
+    and the kernel count."""
     import torch
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    # summed from the profiler's raw events: ``key_averages`` builds a
+    # Python object per event, minutes for a step of 10^5-10^6 kernels
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, n = sums.get(e.name(), (0.0, 0))
+            sums[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    rows = [(name, ms, n) for name, (ms, n) in sums.items()]
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    if busy <= 0:
-        print(f"{label}: no device time in the trace (not measured)")
-        return
+    kernels = sum(r[2] for r in rows)
+    require(busy > 0, f"{label}: no device time in the trace")
     print(f"{label}: wall {wall_ms:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}, "
-          f"{sum(r[2] for r in rows)} kernels")
+          f"{kernels} kernels")
     groups = {}
     for name, ms, _ in rows:
         cat = next((c for c, keys in KERNEL_GROUPS if any(
@@ -1492,6 +1718,7 @@ def report_profile(label: str, prof, wall_ms: float) -> None:
         for c, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
     for name, ms, n in rows[:15]:
         print(f"  {ms:9.2f} ms {n:5d}x  {name[:110]}", flush=True)
+    return busy, kernels
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""The unified LM: init / forward / loss, ``attn``, ``local`` and ``rglru``
-blocks (PyTorch).
+"""The unified LM: init / forward / loss / decode for the ``attn``,
+``local``, ``rglru``, ``slstm`` and ``mlstm`` blocks (PyTorch).
 
 The port of ``repro.models.transformer``. The layer stack is a loop over
 repeating pattern groups whose parameters are stacked on axis 0 under
@@ -7,15 +7,15 @@ repeating pattern groups whose parameters are stacked on axis 0 under
 With ``cfg.remat`` each group runs under ``torch.utils.checkpoint``, the
 counterpart of ``jax.checkpoint`` with ``nothing_saveable``.
 
-The ``attn``, ``local`` (sliding-window attention) and ``rglru`` block
-kinds are ported so far; every other kind raises ``NotImplementedError``
-naming its ROADMAP item.
+The ``attn``, ``local`` (sliding-window attention), ``rglru``, ``slstm``
+and ``mlstm`` block kinds are ported so far; every other kind raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Public API:
   init_params(gen, cfg)            parameter dict on ``gen.device``
   forward(params, batch, cfg)      (logits, aux)
   loss_fn(params, batch, cfg)      (loss, metrics)
-  init_decode_state(cfg, B, max_len, device)   KV caches and RG-LRU states
+  init_decode_state(cfg, B, max_len, device)   KV caches, recurrent states
   decode_state_shapes(cfg, B, max_len)         the same tree on ``meta``
   serve_step(params, state, token, cfg)        (logits, state), one token
 
@@ -44,12 +44,16 @@ Batch = Dict[str, torch.Tensor]
 
 # Block kinds still to port, with the ROADMAP.md module item that ports them.
 _UNPORTED = {
-    "slstm": "ROADMAP 1.9 (xlstm-350m)",
-    "mlstm": "ROADMAP 1.9 (xlstm-350m)",
     "moe": "ROADMAP 1.10 (deepseek-moe-16b, arctic-480b)",
     "xattn": "ROADMAP 1.11 (llama-3.2-vision-90b)",
     "encdec": "ROADMAP 1.11 (whisper-small)",
 }
+
+
+# The recurrent block kinds: each keeps its parameters under its own name
+# and has ``init_<kind>``, ``apply_<kind>``, ``init_<kind>_state`` and
+# ``step_<kind>`` in ``recurrent``.
+_RECURRENT = ("rglru", "slstm", "mlstm")
 
 
 def _check_kind(kind: str) -> None:
@@ -68,9 +72,9 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
     p: Params = {"norm1": init_norm(cfg, gen.device)}
     if kind in ("attn", "local"):
         p["attn"] = init_attention(gen, cfg)
-    if kind == "rglru":
-        p["rglru"] = rec.init_rglru(gen, cfg)
-    if cfg.d_ff:
+    if kind in _RECURRENT:
+        p[kind] = getattr(rec, f"init_{kind}")(gen, cfg)
+    if kind in ("attn", "local", "rglru") and cfg.d_ff:
         p["norm2"] = init_norm(cfg, gen.device)
         p["mlp"] = init_mlp(gen, cfg)
     return p
@@ -90,9 +94,9 @@ def _apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
         x = x + attention_block(p["attn"], apply_norm(p["norm1"], x, cfg),
                                 cfg, positions, window=w,
                                 use_rope=(cfg.rope_theta > 0))
-    if kind == "rglru":
-        x = x + rec.apply_rglru(p["rglru"], apply_norm(p["norm1"], x, cfg),
-                                cfg)
+    if kind in _RECURRENT:
+        x = x + getattr(rec, f"apply_{kind}")(
+            p[kind], apply_norm(p["norm1"], x, cfg), cfg)
     if "mlp" in p:
         x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
     return x, aux
@@ -331,8 +335,8 @@ def loss_fn(params: Params, batch: Batch,
 def _slot_state(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                 device) -> Params:
     _check_kind(kind)
-    if kind == "rglru":
-        return rec.init_rglru_state(cfg, batch, device)
+    if kind in _RECURRENT:
+        return getattr(rec, f"init_{kind}_state")(cfg, batch, device)
     window = cfg.window if kind == "local" else 0
     return {name: c[0] for name, c in init_kv_cache(
         cfg, batch, max_len, 1, window=window, device=device).items()}
@@ -348,11 +352,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     state: Params = {"pos": torch.zeros((), dtype=torch.int32,
                                         device=device)}
     if cfg.n_groups > 0:
+        # one slot's state repeated down the groups (the xLSTM stabilizer
+        # starts at -1e30, not 0)
         state["scan"] = {
             f"s{si}_{kind}": tree_map(
-                lambda x: torch.zeros((cfg.n_groups, *x.shape),
-                                      dtype=x.dtype, device=device),
-                _slot_state(kind, cfg, batch, max_len, "meta"))
+                lambda x: x.expand(cfg.n_groups, *x.shape).clone(),
+                _slot_state(kind, cfg, batch, max_len, device))
             for si, kind in enumerate(cfg.pattern)}
     if cfg.n_tail:
         state["tail"] = {
@@ -376,9 +381,9 @@ def _step_block(kind: str, p: Params, x: torch.Tensor, st: Params,
         y, _, _ = decode_attention(p["attn"], h, st["k"], st["v"], pos, cfg,
                                    window=w, use_rope=(cfg.rope_theta > 0))
         x = x + y
-    if kind == "rglru":
-        y, s2 = rec.step_rglru(p["rglru"], apply_norm(p["norm1"], x, cfg),
-                               st, cfg)
+    if kind in _RECURRENT:
+        y, s2 = getattr(rec, f"step_{kind}")(
+            p[kind], apply_norm(p["norm1"], x, cfg), st, cfg)
         for name, t in s2.items():
             st[name].copy_(t)
         x = x + y

@@ -2,7 +2,8 @@
 manager tests on the torch side, the in-place restore, the on-disk layout
 byte for byte in both directions (fp32 AdamW, bf16 AdamW moments and
 adafactor's factored state), restart equivalence through the port's
-driver, and the restored state of a run equal to its final state."""
+``launch.train`` (xlstm-350m's also against ``repro.launch.train``), and
+the restored state of a run equal to its final state."""
 import filecmp
 import json
 import os
@@ -14,12 +15,14 @@ import pytest
 import torch
 
 import repro.checkpoint as jck
+from repro.launch import train as jax_train
 from repro.optim import make_optimizer as jax_optimizer
 from repro_torch import checkpoint as ck
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import train
 from repro_torch.optim import make_optimizer
 from repro_torch.tree import leaves, tree_map
+from test_torch_optim import carried_jax_run
 
 
 class TestCheckpoint:
@@ -250,7 +253,8 @@ def run_args(*argv):
          "cpu", *argv])
 
 
-@pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b",
+                                  "xlstm-350m"])
 def test_restart_equivalence(arch, tmp_path):
     """Train N steps straight == train, crash, resume (same losses)."""
     base = ["--arch", arch, "--steps", "12", "--ckpt-every", "4"]
@@ -261,6 +265,23 @@ def test_restart_equivalence(arch, tmp_path):
     r2 = train.run(run_args(*base, "--ckpt-dir", str(tmp_path / "b")))
     assert r2["steps"] == 3                      # resumed from step 8
     assert r2["last_loss"] == pytest.approx(r1["last_loss"], rel=1e-4)
+
+
+def test_xlstm_restart_tracks_the_jax_train_loop(monkeypatch, tmp_path):
+    """The reference's own restart test (``test_checkpoint_data.py``) runs
+    on xlstm-350m: ``repro.launch.train``'s uninterrupted run against the
+    port's run crashed at step 9 and resumed, from the JAX init and
+    batches."""
+    carried_jax_run(monkeypatch, "xlstm-350m")
+    base = ["--arch", "xlstm-350m", "--steps", "12", "--ckpt-every", "4"]
+    want = jax_train.run(jax_train.build_argparser().parse_args(
+        ["--batch", "2", "--seq", "16", "--log-every", "100", *base]))
+    with pytest.raises(RuntimeError, match="simulated node failure"):
+        train.run(run_args(*base, "--ckpt-dir", str(tmp_path),
+                           "--fail-at", "9"))
+    got = train.run(run_args(*base, "--ckpt-dir", str(tmp_path)))
+    assert got["steps"] == 3
+    assert got["last_loss"] == pytest.approx(want["last_loss"], rel=1e-4)
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "adamw_bf16", "adafactor"])

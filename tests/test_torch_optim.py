@@ -278,7 +278,7 @@ def test_sync_step_is_the_optimizer_update():
 LOSS_LINE = re.compile(r"^step\s+(\d+) loss\s+(\S+)", re.M)
 
 
-def carried_driver(monkeypatch, arch, seed=0):
+def carried_jax_run(monkeypatch, arch, seed=0):
     """The port's driver on the JAX driver's init and batches: the two
     packages' random streams differ, so both are carried across."""
     jc = jax_config(arch, smoke=True)
@@ -340,7 +340,7 @@ def assert_tracks(port, jax_res, printed):
                                    "int8"]],
                          ids=["int8", "topk", "async2-int8"])
 def test_driver_tracks_the_jax_driver(argv, monkeypatch, capsys):
-    carried_driver(monkeypatch, "gemma-7b")
+    carried_jax_run(monkeypatch, "gemma-7b")
     jax_res, printed = jax_losses(argv, capsys)
     assert_tracks(port_run(argv), jax_res, printed)
 
@@ -349,7 +349,7 @@ def test_driver_async_saves_the_unused_opt_state(monkeypatch, tmp_path):
     """The reference's quirk, kept: async mode updates ``astate``'s own
     optimizer state, never the driver's ``opt_state``, which is what it
     returns and checkpoints."""
-    carried_driver(monkeypatch, "gemma-7b")
+    carried_jax_run(monkeypatch, "gemma-7b")
     res = port_run(["--async-staleness", "2", "--steps", "3", "--ckpt-dir",
                     str(tmp_path)])
     assert res["opt_state"]["step"] == 0
@@ -363,7 +363,7 @@ def test_driver_crash_and_resume_tracks_the_jax_driver(monkeypatch, capsys,
     """Checkpoints at steps 0 and 2, a simulated failure at step 3, then a
     resume from step 2: the port's sequence against the JAX driver's, and
     the port's resumed losses against its own uninterrupted run."""
-    carried_driver(monkeypatch, "gemma-7b")
+    carried_jax_run(monkeypatch, "gemma-7b")
     base = ["--steps", "6", "--ckpt-every", "2"]
     crash = [*base, "--fail-at", "3"]
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")

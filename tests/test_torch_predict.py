@@ -78,7 +78,8 @@ def _flat(tree, path=()):
     return out
 
 
-@pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b",
+                                  "xlstm-350m"])
 def test_param_shapes_match_the_ports_init(arch):
     cfg = port_config(arch, smoke=True)
     params = port_tf.init_params(torch.Generator().manual_seed(0), cfg)

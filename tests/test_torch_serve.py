@@ -1,6 +1,6 @@
 """The port's decode path against the JAX package: ``decode_attention`` (full
 cache and a wrapping ring), ``step_rglru`` and the conv state,
-``serve_step`` step by step for the five portable archs, decode with
+``serve_step`` step by step for the six portable archs, decode with
 teacher forcing against ``forward``, the decode state's layout, the
 prefill and grad step factories and the CPU serve loop. Inputs come from
 numpy; JAX-initialised weights are carried across."""
@@ -32,7 +32,7 @@ from repro_torch.tree import leaves, tree_map
 TOL = 1e-5
 KEY = jax.random.PRNGKey(7)
 ARCHS = ["gemma-7b", "granite-8b", "phi4-mini-3.8b", "starcoder2-7b",
-         "recurrentgemma-2b"]
+         "recurrentgemma-2b", "xlstm-350m"]
 
 
 def carried(jp):
@@ -295,7 +295,7 @@ def test_decode_state_shapes_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("xlstm-350m", "1.9"), ("deepseek-moe-16b", "1.10"),
+    ("deepseek-moe-16b", "1.10"),
     ("llama-3.2-vision-90b", "1.11"), ("whisper-small", "1.11")])
 def test_unported_kinds_raise(arch, item):
     cfg = get_config(arch, smoke=True)
@@ -329,7 +329,8 @@ def test_serve_step_factory_is_serve_step():
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b",
+                                  "xlstm-350m"])
 def test_grad_step_matches_jax(arch):
     jc, tc, jp, tp = setup(arch)
     toks = tokens(jc.vocab, 2, 33, seed=1)
@@ -356,7 +357,8 @@ def args(**kw):
     return argparse.Namespace(**{**vars(ns), **base})
 
 
-@pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b",
+                                  "xlstm-350m"])
 def test_serve_run_matches_jax_serve(arch, monkeypatch, capsys):
     """The JAX serve loop's greedy ids, from its own seeded weights and
     prompts carried into the port's serve loop (the two packages' random
@@ -387,7 +389,8 @@ def test_serve_run_matches_jax_serve(arch, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("arch,layers", [("gemma-7b", 1),
-                                         ("recurrentgemma-2b", 4)])
+                                         ("recurrentgemma-2b", 4),
+                                         ("xlstm-350m", 2)])
 def test_serve_run_layers_and_what_it_served(arch, layers):
     """``--layers`` cuts the depth; ``run`` returns the prompts and weights
     it served, and feeding the prompt and the generated ids back through

@@ -28,7 +28,7 @@ def numpy_batches(vocab, n, b, s, seed=5):
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "granite-8b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "xlstm-350m"])
 def test_five_adamw_steps_track_jax(arch):
     jc = jax_config(arch, smoke=True)
     tc = get_config(arch, smoke=True)
