@@ -17,9 +17,10 @@ for each source, all started together), then
      16, 16, 256) on its first and last 512 rows, q scaled by 8 so each
      row's softmax picks a few keys and a lost or misplaced key tile moves
      the output by O(1) (a full plain version would need a 68 GB score
-     tensor), and each autograd op's
-     gradients against plain autograd, the scan's also at its path shape
-     (forward and the kernel's reverse mode);
+     tensor), at deepseek-moe-16b's path shape (2, 2048, 16, 16, 128) and
+     arctic-480b's attention (1, 2048, 56, 8, 128: 7 query heads a kv
+     head), and each autograd op's gradients against plain autograd, the
+     scan's also at its path shape (forward and the kernel's reverse mode);
   2. checks each model on the card against itself with the kernels off
      (gemma-7b smoke config with head_dim 64 in fp32 and head_dim 256 in
      bf16, and recurrentgemma-2b smoke in fp32; S = 256: loss and
@@ -32,7 +33,8 @@ for each source, all started together), then
      and holds each path's step-1 loss to the one recorded in PERF.md;
   4. times each kernel, its plain version and the nearest PyTorch library
      call at its path's shape, beside the card's bound, with the achieved
-     TFLOP/s (flash) and GB/s (scan, both directions);
+     TFLOP/s (flash, also at deepseek-moe-16b's path shape) and GB/s (scan,
+     both directions);
   5. profiles one more training step of each path (device time by kernel,
      idle share);
   6. closes the paper's loop on the card (``repro_torch.core``):
@@ -112,15 +114,44 @@ for each source, all started together), then
        e. runs 9b's path with a checkpoint every step, failed at step 2,
           then resumed: losses 1-3 within 1e-4 relative of 9b's, the
           checkpoint's bytes and save and restore seconds (in
-          ``build/phase9/``, removed at the end).
+          ``build/phase9/``, removed at the end);
+ 10. the MoE block (``models/moe.py``; no kernel of its own, its attention
+     runs the flash kernel):
+       a. the deepseek-moe-16b and arctic-480b smoke models (fp32, S = 64)
+          on the card against the CPU from the same numpy weights and
+          batch, as configured and with remat: loss within 1e-5 relative,
+          every gradient within 1e-4;
+       b. trains deepseek-moe-16b at full width with 4 of its 28 layers
+          through ``train.run``, as phase 3 (5 AdamW steps, B = 2,
+          S = 2048, bf16, remat, kernels on, launch counts set to 0 just
+          before and read just after: 40 flash launches, no scan), its peak
+          under 75 GB, the step-1 ``ce``, ``aux_loss`` and ``z_loss``, and
+          the routed assignments dropped at its capacity held to the
+          recorded count;
+       c. profiles one more step of that run, and counts one step's FLOPs
+          on fake tensors beside 6·N_active·D and the dense dispatch and
+          combine products' share;
+       d. serves deepseek-moe-16b at full width and depth as phase 7 (B = 8,
+          128 + 128 tokens); the teacher-forced check is gated in fp32 at a
+          capacity factor that drops nothing (E/k: C = G in the forward,
+          C = B in decode; at the served factor the forward drops what
+          decode keeps), the bf16 error at that factor printed beside it
+          and split by whether decode picked the forward's experts, and
+          the assignments decode and the forward each drop at the served
+          factor held to the recorded counts;
+       e. serves one full-width arctic-480b layer (56.3 GB of fp32 weights)
+          through ``serve.run --full --layers 1``, B = 8, 32 + 32 tokens,
+          checked as 10d.
 
 Each result is printed as it comes; the line before the card's name is one
 JSON object with the kernels, and the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
-It exits non-zero at once when CUDA is not available.
+It exits non-zero at once when CUDA is not available, and after 1140 s,
+with every thread's stack on stderr.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -129,12 +160,17 @@ import shutil
 import statistics
 import subprocess
 import sys
+import faulthandler
 import time
 import traceback
 import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+START = time.time()
+# the run must end within 1200 s: past this, every thread's stack is
+# dumped to stderr and the run exits non-zero
+WATCHDOG_S = 1140
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet).
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -148,6 +184,8 @@ GEMMA_ARGV = ["--arch", "gemma-7b", "--layers", "4", *COMMON_ARGV]
 # recurrentgemma-2b at full width and depth: 26 layers, 46.3 GB of state.
 RG_ARGV = ["--arch", "recurrentgemma-2b", *COMMON_ARGV]
 SLICE = (2, 2048, 16, 16, 256)          # flash b, s, h, kv, d on its path
+MOE_SLICE = (2, 2048, 16, 16, 128)      # ... on the deepseek-moe-16b path
+ARCTIC_SLICE = (1, 2048, 56, 8, 128)    # ... arctic-480b's, 7 q a kv head
 PREFILL = (1, 32768, 16, 16, 256)       # ... on the prefill path
 PREFILL_ROWS = 512                      # rows held against the plain version
 PREFILL_Q_SCALE = 8     # peaks the softmax there, so each output is O(1)
@@ -171,6 +209,8 @@ KERNEL_GROUPS = [
     ("softmax/reduce", ("softmax", "reduce", "logsumexp")),
     ("copy/cast", ("copy",)),
     ("elementwise", ("elementwise",)),
+    # the MoE top-k's sort and slot cumsum, and embedding-backward sorts
+    ("sort/scan", ("Sort", "sort", "scan_")),
 ]
 XLSTM = "xlstm-350m"
 # xlstm-350m at full width and depth: 24 layers, 242,394,208 parameters,
@@ -183,6 +223,17 @@ XLSTM_ARGV = ["--arch", XLSTM, "--full", "--batch", "4", "--seq", "128",
 XLSTM_SMOKE_SEQ = 64                    # 9a: the smoke model, card vs CPU
 # phase 9e's checkpoints, removed when the phase ends, passed or failed
 PHASE9_DIR = ROOT / "build" / "phase9"
+DEEPSEEK, ARCTIC = "deepseek-moe-16b", "arctic-480b"
+# deepseek-moe-16b at full width, 4 of its 28 layers: 2,770,880,512
+# parameters, 44.3 GB of fp32 state (params, grads, two AdamW moments); all
+# 28 layers would take 270 GB
+DEEPSEEK_ARGV = ["--arch", DEEPSEEK, "--layers", "4", *COMMON_ARGV]
+# one full-width arctic-480b layer: 14,073,615,360 parameters, 56.3 GB of
+# fp32 weights (its training state, 225 GB, waits for sharding)
+ARCTIC_SERVE_ARGV = ["--full", "--layers", "1", "--batch", "8",
+                     "--prompt-len", "32", "--gen", "32", "--device", "cuda"]
+MOE_SMOKE_SEQ = 64                      # 10a: the smoke models, card vs CPU
+PEAK_LIMIT = 75e9       # a path that peaks above this has its depth cut
 LOSS_LINE = re.compile(r"^step\s+\d+ loss\s+(\S+)", re.M)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SCAN_TOL = 3e-5     # the reference's tolerance for the RG-LRU scan
@@ -190,8 +241,18 @@ DTYPES = ("float32", "bfloat16")
 # Step-1 losses of the seeded training paths as PERF.md records them (the
 # same seeds, the same data; a kernel that is right moves them by far less).
 STEP1_LOSS = {"gemma-7b": 13.2019, "recurrentgemma-2b": 12.9457,
-              XLSTM: 11.3643}
+              XLSTM: 11.3643, DEEPSEEK: 12.8005}
 STEP1_TOL = 0.01
+# Routed MoE assignments (dropped, assigned) at the configs' own capacity
+# factor, as PERF.md records them (the same seeds and data, NVIDIA H100
+# 80GB HBM3): 10b's training run (forward and remat recompute), and in
+# 10d and 10e the served decode and the forward over the same tokens. A
+# count may move by DROP_TOL of the assignments (bf16 rounding that flips
+# a pick); a routing or slot fault moves it by far more.
+MOE_DROPS = {"10b": (677928, 983040),
+             "10d decode": (114768, 344064), "10d forward": (158103, 344064),
+             "10e decode": (84, 1024), "10e forward": (277, 1024)}
+DROP_TOL = 0.002
 
 
 class SmokeFailure(Exception):
@@ -260,6 +321,28 @@ def scan_bound(n, s, r, dtype: str):
     return bound(2 * n * s * r, 3 * elem * n * s * r, "float32")
 
 
+def time_flash(shape, inputs, kernel, plain) -> dict:
+    """Phase 4: the bf16 causal flash kernel at a path's shape against its
+    plain version and SDPA, beside the bound; the kernel JSON's numbers."""
+    import torch.nn.functional as F
+    b, s, h, kv, d = shape
+    q, k, v = inputs(b, s, h, kv, d, "bfloat16")
+    ms = cuda_ms(lambda: kernel(q, k, v), iters=20)
+    plain_ms = cuda_ms(lambda: plain(q, k, v), iters=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=20)
+    bound_ms, by = attention_bound(b, s, h, kv, d, s, "bfloat16")
+    flops = 4 * b * h * d * attention_pairs(s, s, True, 0)
+    print(f"flash_attention at {shape} bf16 causal: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+          f"sdpa {lib:.4f} ms ({flops / lib / 1e9:.1f} TFLOP/s), "
+          f"bound {bound_ms:.4f} ms ({by}, {bound_ms / ms:.3f} of it "
+          f"reached)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib}
+
+
 def check_close(label: str, out, want, tol: float) -> float:
     diff = (out.float() - want.float()).abs()
     err = diff.max().item()
@@ -324,6 +407,7 @@ def main() -> int:
         return a.to(dtypes[dtype]), b.to(dtypes[dtype])
 
     # -- phase 1a: flash kernel against its plain version -------------------
+    mark("1")
     # every row in fp32 (the CUDA-core kernel) and bf16 (the tensor-core
     # kernel): causal sweep, windows, non-causal, T > S, D = 64, 128, 256
     rows = [(shape, True, 0, None)
@@ -339,8 +423,9 @@ def main() -> int:
              ((1, 32, 2, 1, 128), True, 0, 96)]      # ... and a ragged T
     cases = [(shape, dt, causal, window, t)
              for shape, causal, window, t in rows for dt in DTYPES]
-    cases += [(SLICE, "bfloat16", True, 0, None)]
-    slice_err = None
+    cases += [(shape, "bfloat16", True, 0, None)
+              for shape in (SLICE, MOE_SLICE, ARCTIC_SLICE)]
+    slice_err = {}
     for shape, dt, causal, window, t in cases:
         q, k, v = inputs(*shape, dt, t=t)
         out = flash_attention_fwd(q, k, v, causal=causal, window=window)
@@ -349,8 +434,8 @@ def main() -> int:
         err = check_close(f"flash kernel-vs-plain {shape} t={t or shape[1]} "
                           f"{dt} causal={causal} window={window}", out, want,
                           TOL[dt])
-        if (shape, dt) == (SLICE, "bfloat16"):
-            slice_err = err
+        if shape in (SLICE, MOE_SLICE) and dt == "bfloat16":
+            slice_err[shape] = err
         del q, k, v, out, want
 
     prefill = prefill_rows(inputs, flash_attention_fwd, flash_attention_ref)
@@ -438,6 +523,7 @@ def main() -> int:
     del a, b, g, h, out, grads
 
     # -- phase 2: the models on the card, kernels on vs off -----------------
+    mark("2")
     # head_dim 64 and 256: the flash kernel is built for head widths 64,
     # 128, 256; fp32 runs the CUDA-core kernel, bf16 the tensor-core one
     model_on_off("gemma-7b", head_dim=64)
@@ -445,6 +531,7 @@ def main() -> int:
     model_on_off("recurrentgemma-2b")
 
     # -- phase 3: the training paths ----------------------------------------
+    mark("3")
     counters = {"flash_attention": flash_attention_fwd,
                 "rglru_scan": rglru_scan_fwd}
     gemma = drive("gemma-7b", GEMMA_ARGV, counters)
@@ -457,30 +544,14 @@ def main() -> int:
             "rglru_scan kernel launch count is off on the recurrentgemma "
             "path")
     for path in (gemma, rg):
-        got, want = path["losses"][0], STEP1_LOSS[path["label"]]
-        print(f"{path['label']} step-1 loss {got:.4f} vs recorded {want} "
-              f"(tol {STEP1_TOL})")
-        require(abs(got - want) <= STEP1_TOL,
-                f"{path['label']}: step-1 loss moved")
+        check_step1("", path["label"], path["losses"][0])
 
     # -- phase 4: timings at each kernel's path shape -----------------------
-    import torch.nn.functional as F
+    mark("4")
     saved = {k: c.launches for k, c in counters.items()}
-    b_, s_, h_, kv_, d_ = SLICE
-    q, k, v = inputs(b_, s_, h_, kv_, d_, "bfloat16")
-    fa_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v), iters=20)
-    fa_plain = cuda_ms(lambda: flash_attention_ref(q, k, v), iters=5)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    fa_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters=20)
-    fa_bound, fa_by = attention_bound(b_, s_, h_, kv_, d_, s_, "bfloat16")
-    fa_flops = 4 * b_ * h_ * d_ * attention_pairs(s_, s_, True, 0)
-    print(f"flash_attention at {SLICE} bf16 causal: kernel {fa_ms:.4f} ms "
-          f"({fa_flops / fa_ms / 1e9:.1f} TFLOP/s), plain {fa_plain:.3f} ms, "
-          f"sdpa {fa_lib:.4f} ms ({fa_flops / fa_lib / 1e9:.1f} TFLOP/s), "
-          f"bound {fa_bound:.4f} ms ({fa_by}, {fa_bound / fa_ms:.3f} of it "
-          f"reached)", flush=True)
-    del q, k, v, qt, kt, vt
+    fa = {shape: time_flash(shape, inputs, flash_attention_fwd,
+                            flash_attention_ref)
+          for shape in (SLICE, MOE_SLICE)}
 
     a, b = scan_inputs(RG_SHAPE)
     rg_ms = cuda_ms(lambda: rglru_scan_fwd(a, b), iters=50)
@@ -508,19 +579,24 @@ def main() -> int:
         c.launches = saved[name]
 
     # -- phase 5: device time of one training step of each path -------------
+    mark("5")
     profile_step(gemma)
     profile_step(rg)
 
     # -- phase 6: FLOP count -> calibrated step DAG -> DES predictions -------
+    mark("6")
     two = predict_phase(gemma, counters)
     waterfill_phase()
 
     # -- phase 7: serving: decode at full depth, prefill at prefill_32k -----
+    mark("7")
     for label, arch in (("7a", "gemma-7b"), ("7b", "recurrentgemma-2b")):
         serve_phase(label, arch, counters)
+    mark("7c")
     prefill_launches = prefill_phase(counters)
 
     # -- phase 8: the training driver in full -------------------------------
+    mark("8")
     try:
         restart = restart_phase(gemma, two, counters)
         calibrate_phase(restart)
@@ -530,19 +606,28 @@ def main() -> int:
         shutil.rmtree(PHASE8_DIR, ignore_errors=True)
 
     # -- phase 9: xlstm-350m at full width and depth, no kernel -------------
-    xlstm_card_vs_cpu()
+    mark("9")
+    card_vs_cpu("9a", XLSTM, XLSTM_SMOKE_SEQ,
+                ({}, {"remat": True, "time_chunk": 16}))
     try:
         xlstm = xlstm_phase(counters)
     finally:
         shutil.rmtree(PHASE9_DIR, ignore_errors=True)
-    got = xlstm["losses"][0]
-    print(f"9b {XLSTM} step-1 loss {got:.4f} vs recorded {STEP1_LOSS[XLSTM]}"
-          f" (tol {STEP1_TOL})")
-    require(abs(got - STEP1_LOSS[XLSTM]) <= STEP1_TOL,
-            f"{XLSTM}: step-1 loss moved")
+    check_step1("9b ", XLSTM, xlstm["losses"][0])
+
+    # -- phase 10: the MoE block: deepseek-moe-16b, arctic-480b -------------
+    mark("10")
+    for arch in (DEEPSEEK, ARCTIC):
+        card_vs_cpu("10a", arch, MOE_SMOKE_SEQ, ({}, {"remat": True}))
+    deepseek = moe_train_phase(counters)
+    serve_phase("10d", DEEPSEEK, counters, gate_dtype="float32")
+    serve_phase("10e", ARCTIC, counters, gate_dtype="float32",
+                argv=ARCTIC_SERVE_ARGV)
 
     flash_launches = {"train gemma-7b 4 layers x 5 steps":
                       gemma["launches"]["flash_attention"],
+                      "train deepseek-moe-16b 4 layers x 5 steps":
+                      deepseek["launches"]["flash_attention"],
                       "prefill gemma-7b 28 layers x 3 runs": prefill_launches,
                       **restart["launches"], **async_launches}
     kernels = [{
@@ -552,12 +637,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:29",
         "launches": sum(flash_launches.values()),
         "launches_by_path": flash_launches,
-        "max_abs_err": slice_err,
-        "ms": fa_ms,
-        "plain_ms": fa_plain,
-        "bound_ms": fa_bound,
-        "bound_by": fa_by,
-        "library_ms": fa_lib,
+        "max_abs_err": slice_err[SLICE],
+        **fa[SLICE],
+        "deepseek_shape": list(MOE_SLICE),
+        "deepseek_max_abs_err": slice_err[MOE_SLICE],
+        **{f"deepseek_{k}": x for k, x in fa[MOE_SLICE].items()},
         "prefill_shape": list(PREFILL),
         "prefill_max_abs_err_first_rows": prefill["err_first"],
         "prefill_max_abs_err_last_rows": prefill["err_last"],
@@ -874,24 +958,43 @@ def optimizer_phase() -> None:
     torch.cuda.empty_cache()
 
 
-def xlstm_card_vs_cpu() -> None:
-    """Phase 9a: the xlstm-350m smoke model (4 layers, d_model 64, fp32,
-    S = 64) on the card against the CPU, from the same numpy weights and
-    batch: the loss within 1e-5 relative and every gradient within 1e-4;
-    as configured, then with remat and a time chunk of 16 (the chunked
-    time scan under the group remat)."""
+def check_drops(label: str, tally) -> None:
+    """Holds a ``counted_drops`` tally to the one ``MOE_DROPS`` records."""
+    dropped, assigned = MOE_DROPS[label]
+    got = tally.dropped()
+    print(f"{label}: dropped {got} of {tally.assigned} routed assignments, "
+          f"recorded {dropped} of {assigned} (tolerance "
+          f"{DROP_TOL * assigned:.0f})", flush=True)
+    require(tally.assigned == assigned
+            and abs(got - dropped) <= DROP_TOL * assigned,
+            f"{label}: the dropped assignments moved from the recorded ones")
+
+
+def check_step1(prefix: str, arch: str, got: float) -> None:
+    """A path's step-1 loss against the one PERF.md records."""
+    want = STEP1_LOSS[arch]
+    print(f"{prefix}{arch} step-1 loss {got:.4f} vs recorded {want} "
+          f"(tol {STEP1_TOL})", flush=True)
+    require(abs(got - want) <= STEP1_TOL, f"{arch}: step-1 loss moved")
+
+
+def card_vs_cpu(label: str, arch: str, seq: int, overrides) -> None:
+    """Phases 9a and 10a: an arch's smoke model (fp32) on the card against
+    the CPU, from the same numpy weights and batch (B = 2, S = ``seq``):
+    the loss within 1e-5 relative and every gradient within 1e-4, once for
+    each dict of config ``overrides`` (9a: as configured, then with remat
+    and a time chunk of 16, the chunked time scan under the group remat)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.models import transformer
     from repro_torch.tree import leaves
-    base = get_config(XLSTM, smoke=True)
+    base = get_config(arch, smoke=True)
     weights = params_to_numpy(transformer.init_params(
         torch.Generator().manual_seed(3), base))
-    toks = np.random.default_rng(4).integers(
-        0, base.vocab, (2, XLSTM_SMOKE_SEQ + 1))
-    for over in ({}, {"remat": True, "time_chunk": 16}):
+    toks = np.random.default_rng(4).integers(0, base.vocab, (2, seq + 1))
+    for over in overrides:
         cfg = base.replace(**over)
         res = {}
         for dev in ("cuda", "cpu"):
@@ -905,14 +1008,14 @@ def xlstm_card_vs_cpu() -> None:
         rel = abs(card - cpu) / abs(cpu)
         gerr = max(((a - b).abs() / (1 + b.abs())).max().item()
                    for a, b in zip(gcard, gcpu))
-        print(f"9a {XLSTM} smoke (layers {cfg.n_layers}, d_model "
-              f"{cfg.d_model}, {cfg.dtype}, S={XLSTM_SMOKE_SEQ}, remat "
+        print(f"{label} {arch} smoke (layers {cfg.n_layers}, d_model "
+              f"{cfg.d_model}, {cfg.dtype}, S={seq}, remat "
               f"{cfg.remat}, time_chunk {cfg.time_chunk}) card vs CPU: loss "
               f"{card:.7f} vs {cpu:.7f} (rel {rel:.2e}, tol 1e-5); "
               f"{len(gcpu)} gradients, max |card - CPU| / (1 + |CPU|) "
               f"{gerr:.2e} (tol 1e-4)", flush=True)
         require(rel <= 1e-5 and gerr <= 1e-4,
-                f"9a: {XLSTM} on the card differs from the CPU")
+                f"{label}: {arch} on the card differs from the CPU")
 
 
 def xlstm_phase(counters) -> dict:
@@ -1085,22 +1188,35 @@ def teacher_forced(params, cfg, toks):
             state)
 
 
-def serve_phase(label: str, arch: str, counters,
-                gate_dtype: str = "") -> None:
-    """Phases 7a, 7b and 9d: ``serve.run`` at full width and depth, then
-    decode with teacher forcing against ``forward`` at full depth, gated at
-    the reference's bound in ``gate_dtype`` when it is given (the served
-    dtype's error is then printed beside the forward's own spread), else
-    in the served dtype."""
+def serve_phase(label: str, arch: str, counters, gate_dtype: str = "",
+                argv=SERVE_ARGV) -> None:
+    """Phases 7a, 7b, 9d, 10d and 10e: ``serve.run`` (``argv``: full width
+    and depth unless it cuts them), then decode with teacher forcing against
+    ``forward``, gated at the reference's bound in ``gate_dtype`` when it is
+    given (the served dtype's error is then printed beside the forward's
+    own spread), else in the served dtype.
+
+    An MoE arch's teacher-forced passes run at a capacity factor of E/k,
+    where nothing drops (C = G in the forward, C = B in decode; each pass
+    must drop nothing): at the served factor a decode step routes B tokens
+    where the forward routes B·S, so the forward drops assignments that
+    decode keeps, in the reference too. The assignments that decode (in
+    ``serve.run``) and ``forward`` (over the same served tokens) each drop
+    at the served factor are held to ``MOE_DROPS``; where the served dtype
+    is not gated, its error is split by whether decode routed each
+    position as the forward did."""
+    import dataclasses
+
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import transformer
-    args = serve.build_argparser().parse_args(["--arch", arch, *SERVE_ARGV])
+    args = serve.build_argparser().parse_args(["--arch", arch, *argv])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
-    res = serve.run(args)
+    with counted_drops() as served_drops:
+        res = serve.run(args)
     launches = {k: c.launches for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     cfg, ids = res["config"], res["ids"]
@@ -1138,9 +1254,16 @@ def serve_phase(label: str, arch: str, counters,
     # in ``gate_dtype`` where it is given, then in the served dtype
     max_len = args.prompt_len + args.gen
     toks = torch.cat([prompts, ids.to(prompts.device)], dim=1)
-    gate = cfg.replace(dtype=gate_dtype) if gate_dtype else cfg
-    for c in (gate, cfg) if gate_dtype else (cfg,):
-        errs, full, greedy, state = teacher_forced(params, c, toks)
+    checked, no_drop = cfg, cfg.moe is not None
+    if no_drop:
+        m = cfg.moe
+        checked = cfg.replace(moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k))
+    gate = checked.replace(dtype=gate_dtype) if gate_dtype else checked
+    torch.cuda.reset_peak_memory_stats()
+    for c in (gate, checked) if gate_dtype else (checked,):
+        with counted_drops() as drops:
+            errs, full, greedy, state = teacher_forced(params, c, toks)
         err = errs.max().item()
         # over the real vocab: a padded tail holds -finfo.max / 2
         scale = full.float().abs().max().item()
@@ -1154,7 +1277,15 @@ def serve_phase(label: str, arch: str, counters,
                 f"{errs[:args.prompt_len].max().item():.4e}, generated "
                 f"{errs[args.prompt_len:].max().item():.4e}), max |logits| "
                 f"{scale:.3f}, bound {tol:.4e}")
+        if no_drop:
+            line += (f"; capacity factor {c.moe.capacity_factor:g}, "
+                     f"assignments dropped {drops.dropped()} of "
+                     f"{drops.assigned}")
+            require(drops.dropped() == 0,
+                    f"{label}: the no-drop capacity dropped an assignment")
         if c is not gate:
+            if no_drop:
+                line += routing_split(drops.picks, errs, args.batch)
             # not gated: the served dtype's forward disagrees with itself
             # by more than the bound when only the batch changes
             with torch.inference_mode():
@@ -1172,6 +1303,24 @@ def serve_phase(label: str, arch: str, counters,
         require(math.isfinite(err) and err < tol,
                 f"{label}: decode disagrees with forward")
     del full, greedy
+    checked_peak = torch.cuda.max_memory_allocated()
+    print(f"{label} serve {arch}: peak memory of the teacher-forced passes "
+          f"{checked_peak / 2**30:.2f} GiB ({checked_peak / 1e9:.2f} GB)",
+          flush=True)
+    if no_drop:
+        with counted_drops() as fwd_drops, torch.inference_mode():
+            transformer.forward(params, {"tokens": toks}, cfg)
+        cap = moe_split(cfg, args.batch * max_len)[2]
+        print(f"{label} serve {arch}: at the served capacity factor "
+              f"{cfg.moe.capacity_factor:g}, decode dropped "
+              f"{served_drops.dropped()} of {served_drops.assigned} routed "
+              f"assignments over its {max_len} steps (C = "
+              f"{moe_split(cfg, args.batch)[2]} a step, one group of "
+              f"{args.batch} tokens) and forward over the same tokens "
+              f"{fwd_drops.dropped()} of {fwd_drops.assigned} (C = {cap})",
+              flush=True)
+        check_drops(f"{label} decode", served_drops)
+        check_drops(f"{label} forward", fwd_drops)
 
     # the host's share of a token step: time to enqueue one step with the
     # device idle, against the same step synchronised (a gap near 0 means
@@ -1204,6 +1353,181 @@ def serve_phase(label: str, arch: str, counters,
     report_profile(f"{label} serve {arch}: profile of 4 decode steps", prof,
                    wall_ms)
     del params, state
+
+
+class DropCount:
+    """Routed MoE assignments and the slots they got, summed on the device
+    over every ``moe.assign_slots`` call inside ``counted_drops``, and each
+    call's picked experts (n, G, k) in call order."""
+
+    def __init__(self):
+        self.assigned = 0
+        self.kept = 0
+        self.picks = []
+
+    def dropped(self) -> int:
+        return self.assigned - int(self.kept)
+
+
+@contextlib.contextmanager
+def counted_drops():
+    """Counts, without a host sync, the routed assignments of every MoE
+    layer called inside the block and those dropped for want of a slot."""
+    from repro_torch.models import moe
+    real, tally = moe.assign_slots, DropCount()
+
+    def assign_slots(gate_idx, gate_vals, num_experts, cap):
+        dispatch, combine = real(gate_idx, gate_vals, num_experts, cap)
+        tally.assigned += gate_idx.numel()
+        tally.kept = tally.kept + dispatch.detach().sum()
+        tally.picks.append(gate_idx.detach())
+        return dispatch, combine
+
+    moe.assign_slots = assign_slots
+    try:
+        yield tally
+    finally:
+        moe.assign_slots = real
+
+
+def routing_split(picks, errs, b: int) -> str:
+    """Where ``teacher_forced``'s decode routed a token to other experts
+    than its ``forward`` did, and its error split by that: ``picks`` holds
+    the forward's calls, one a layer, then decode's, one a layer and step;
+    ``errs`` the max error at each position."""
+    import torch
+    t = errs.numel()
+    layers = len(picks) // (t + 1)
+    require(len(picks) == layers * (t + 1), "routing calls do not add up")
+    fwd = torch.stack([p.reshape(b, t, -1) for p in picks[:layers]])
+    dec = torch.stack(picks[layers:]).reshape(t, layers, b, -1)
+    dec = dec.permute(1, 2, 0, 3)                       # (layers, B, T, k)
+    moved = (fwd.sort(-1).values != dec.sort(-1).values).any(-1)
+    at = moved.any(1).any(0).cpu()                      # (T,)
+    same = errs[~at].max().item() if (~at).any() else 0.0
+    other = errs[at].max().item() if at.any() else 0.0
+    return (f"; routed to other experts than the forward's at "
+            f"{int(moved.sum())} of {moved.numel()} (layer, token) pairs, "
+            f"in {int(at.sum())} of {t} positions: max_abs_err where none "
+            f"moved {same:.4e}, where one did {other:.4e}")
+
+
+def moe_split(cfg, tokens: int):
+    """(groups n, tokens a group G, capacity C) of an MoE call on
+    ``tokens`` tokens, as ``moe.apply_moe`` splits them."""
+    from repro_torch.models.moe import capacity, group_split
+    n, g = group_split(tokens, cfg.moe.group_size)
+    return n, g, capacity(cfg, g)
+
+
+def moe_layer_flops(cfg, b: int, s: int) -> dict:
+    """Forward FLOPs of one ``moe`` block at B x S, by product (the dense
+    dispatch and combine as the reference computes them)."""
+    t, d, e = b * s, cfg.d_model, cfg.moe.num_experts
+    n, g, c = moe_split(cfg, t)
+    f, hd = cfg.d_expert_eff, cfg.head_dim
+    slots = n * g * e * c
+    n_slots = n * e * c
+    return {
+        "attention projections": 2 * t * d * hd * (2 * cfg.n_heads
+                                                   + 2 * cfg.n_kv),
+        "attention scores and values": 4 * b * cfg.n_heads * hd
+        * attention_pairs(s, s, True, 0),
+        "router": 2 * t * d * e,
+        "dispatch": 2 * slots * d,
+        "experts": 3 * 2 * n_slots * d * f,
+        "combine": 2 * slots * d,
+        "shared experts": 3 * 2 * t * d * f * cfg.moe.num_shared,
+        "dense residual FFN": 3 * 2 * t * d * cfg.dense_residual_ff,
+    }
+
+
+def moe_train_phase(counters) -> dict:
+    """Phases 10b and 10c: deepseek-moe-16b at full width, 4 layers,
+    through ``train.run`` (launch counts set to 0 just before and read just
+    after; routed assignments and drops counted), the step-1 loss terms at
+    the seeded init, then a profile of one more step and the step's FLOPs
+    on fake tensors. Returns the 10b path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.flop_count import (H100_SXM, count_train_flops,
+                                             model_flops_train)
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import active_param_count, transformer
+    label = f"10b {DEEPSEEK}"
+    args = train.build_argparser().parse_args(DEEPSEEK_ARGV)
+    cfg = get_config(args.arch, smoke=args.smoke).replace(
+        n_layers=args.layers, use_flash_kernel=True)
+
+    # the loss terms of step 1: the run's seeded init and first batch
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(args.seed), cfg)
+    batch = {k: v.cuda() for k, v in SyntheticLM(
+        cfg, args.batch, args.seq, seed=args.seed).next_batch().items()}
+    with torch.no_grad():
+        loss, metrics = transformer.loss_fn(params, batch, cfg)
+    first = {"loss": loss.item(), **{k: v.item() for k, v in metrics.items()}}
+    del params, batch, loss, metrics
+    torch.cuda.empty_cache()
+
+    with counted_drops() as drops:
+        path = drive(label, DEEPSEEK_ARGV, counters, keep=True)
+    launches, per_step = path["launches"], path["per_step"]
+    _, group, cap = moe_split(cfg, args.batch * args.seq)
+    share = drops.dropped() / drops.assigned
+    print(f"{label}: step-1 loss terms at the seeded init: ce "
+          f"{first['ce']:.6f}, aux_loss {first['aux_loss']:.6f}, z_loss "
+          f"{first['z_loss']:.6f}; their sum {first['loss']:.6f} against "
+          f"the run's step-1 loss {path['losses'][0]:.6f}", flush=True)
+    print(f"{label}: routed assignments over the {path['steps']} steps "
+          f"(forward and remat recompute) {drops.assigned}, dropped "
+          f"{drops.dropped()} ({share:.4f}) at C = {cap} (G = {group}, k = "
+          f"{cfg.moe.top_k}, E = {cfg.moe.num_experts}, capacity factor "
+          f"{cfg.moe.capacity_factor:g}); peak {path['peak'] / 1e9:.2f} GB "
+          f"(limit {PEAK_LIMIT / 1e9:g})", flush=True)
+    require(launches["flash_attention"] == per_step["attn"] * path["steps"]
+            and launches["rglru_scan"] == 0,
+            f"{label}: the flash launch count is off")
+    require(path["peak"] < PEAK_LIMIT, f"{label}: peak over the limit")
+    require(abs(first["loss"] - path["losses"][0]) <= STEP1_TOL,
+            f"{label}: the step-1 loss terms do not sum to the step-1 loss")
+    # every MoE call of every step routed B·S·k assignments (forward and
+    # remat recompute); the drops are held to the recorded count. Most
+    # are dropped: at the seeded init the attention output (``wo``'s
+    # fan-in is the head count, as in the reference) outweighs the
+    # residual, and most tokens of a group pick the same few experts
+    calls = cfg.n_layers * (2 if cfg.remat else 1) * path["steps"]
+    require(drops.assigned == calls * args.batch * args.seq * cfg.moe.top_k,
+            f"{label}: the routed assignments do not add up")
+    check_drops("10b", drops)
+    check_step1("10b ", DEEPSEEK, path["losses"][0])
+
+    # 10c: one more step of the same run, profiled; the step's FLOPs
+    result = path.pop("result")
+    busy, kernels = profile_step(path, result)
+    del result
+    torch.cuda.empty_cache()
+    tokens = args.batch * args.seq
+    counted = count_train_flops(cfg, args.batch, args.seq)
+    model = model_flops_train(cfg, tokens)
+    layer = moe_layer_flops(cfg, args.batch, args.seq)
+    routed = layer["dispatch"] + layer["combine"]
+    steady = path["steady_ms"] / 1e3
+    print(f"10c {DEEPSEEK}: device busy {busy:.1f} ms in {kernels} kernels "
+          f"against the unprofiled {path['steady_ms']:.1f} ms a step "
+          f"({1 - busy / path['steady_ms']:.3f} idle); FLOPs of one step "
+          f"(FlopCounterMode on fake tensors) {counted:.6e}, 6·N_active·D "
+          f"{model:.6e} (N_active = {active_param_count(cfg)}), ratio "
+          f"{counted / model:.4f}; utilization {counted / steady / H100_SXM.peak_flops:.4f}"
+          f" of the bf16 peak at the 10b step", flush=True)
+    print(f"10c {DEEPSEEK}: forward FLOPs of one layer by product: "
+          + ", ".join(f"{k} {v:.4e}" for k, v in layer.items() if v)
+          + f"; the dense dispatch and combine {routed / sum(layer.values()):.4f}"
+          " of it", flush=True)
+    require(counted > model, "10c: the counted step has fewer FLOPs than "
+            "6·N_active·D")
+    return path
 
 
 def prefill_phase(counters) -> int:
@@ -1565,6 +1889,7 @@ def drive(label: str, argv, counters, keep: bool = False) -> dict:
     optimizer state stay on the card until the caller drops it)."""
     import torch
     from repro_torch.launch import train
+    from repro_torch.models import active_param_count
     args = train.build_argparser().parse_args(argv)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1587,20 +1912,23 @@ def drive(label: str, argv, counters, keep: bool = False) -> dict:
         return n + recompute + backward * n
     # flash attention: forward only (the VJP is the plain reference), and
     # only where there is no window; rglru_scan: forward and adjoint
-    per_step = {"attn": calls({"attn"}, 0), "rglru": calls({"rglru"}, 1)}
+    # (an ``moe`` block's attention is the same attention block)
+    per_step = {"attn": calls({"attn", "moe"}, 0),
+                "rglru": calls({"rglru"}, 1)}
     step_ms = [1e3 * s for s in result["step_seconds"]]
     steady = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
     tokens = args.batch * args.seq
-    # model FLOPs of a step: 6 N T for the parameter matmuls (N includes the
-    # tied head) plus forward + backward attention; remat recompute excluded
+    # model FLOPs of a step: 6 N T for the parameter matmuls (N the active
+    # parameters, the tied head included) plus forward + backward attention;
+    # remat recompute excluded
     n_params = result["param_count"]
     attn = 0
     for kind in kinds:
-        if kind in ("attn", "local"):
+        if kind in ("attn", "local", "moe"):
             w = cfg.window if kind == "local" else 0
             attn += 3 * 4 * args.batch * cfg.n_heads * cfg.head_dim \
                 * attention_pairs(args.seq, args.seq, True, w)
-    flops = 6 * n_params * tokens + attn
+    flops = 6 * active_param_count(cfg) * tokens + attn
     print(f"{label} path: d_model {cfg.d_model} heads {cfg.n_heads}x"
           f"{cfg.head_dim} kv {cfg.n_kv} d_ff {cfg.d_ff} rnn "
           f"{cfg.rnn_width} vocab {cfg.vocab} layers {cfg.n_layers} "
@@ -1721,7 +2049,14 @@ def report_profile(label: str, prof, wall_ms: float):
     return busy, kernels
 
 
+def mark(phase: str) -> None:
+    """The seconds since the start, as each phase begins."""
+    print(f"[{time.time() - START:.0f} s] phase {phase}", flush=True)
+
+
 if __name__ == "__main__":
+    sys.stdout.reconfigure(line_buffering=True)   # whole lines reach a log
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     try:
         code = main()
     except Exception:   # report any phase's failure and exit non-zero

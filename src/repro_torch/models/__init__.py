@@ -1,7 +1,8 @@
 from .config import ModelConfig, MoEConfig
-from .transformer import (decode_state_shapes, forward, init_decode_state,
-                          init_params, loss_fn, param_count, serve_step)
+from .transformer import (active_param_count, decode_state_shapes, forward,
+                          init_decode_state, init_params, loss_fn,
+                          param_count, param_shapes, serve_step)
 
 __all__ = ["ModelConfig", "MoEConfig", "forward", "loss_fn", "init_params",
-           "param_count", "init_decode_state", "decode_state_shapes",
-           "serve_step"]
+           "param_shapes", "param_count", "active_param_count",
+           "init_decode_state", "decode_state_shapes", "serve_step"]

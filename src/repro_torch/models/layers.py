@@ -47,7 +47,8 @@ def _weak(c: float, dtype: torch.dtype) -> float:
 def dense_init(gen: torch.Generator, shape, in_axis: int = -2) -> torch.Tensor:
     fan_in = shape[in_axis]
     std = 1.0 / math.sqrt(fan_in)
-    return torch.randn(shape, generator=gen, device=gen.device) * std
+    # scaled in place: a full-width expert tensor is 17.8 GB in fp32
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(std)
 
 
 def embed_init(gen: torch.Generator, shape) -> torch.Tensor:
@@ -111,8 +112,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp in ("swiglu", "geglu"):
         return {"wi": dense_init(gen, (d, f)),
                 "wg": dense_init(gen, (d, f)),

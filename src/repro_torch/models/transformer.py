@@ -1,5 +1,5 @@
 """The unified LM: init / forward / loss / decode for the ``attn``,
-``local``, ``rglru``, ``slstm`` and ``mlstm`` blocks (PyTorch).
+``local``, ``moe``, ``rglru``, ``slstm`` and ``mlstm`` blocks (PyTorch).
 
 The port of ``repro.models.transformer``. The layer stack is a loop over
 repeating pattern groups whose parameters are stacked on axis 0 under
@@ -7,8 +7,9 @@ repeating pattern groups whose parameters are stacked on axis 0 under
 With ``cfg.remat`` each group runs under ``torch.utils.checkpoint``, the
 counterpart of ``jax.checkpoint`` with ``nothing_saveable``.
 
-The ``attn``, ``local`` (sliding-window attention), ``rglru``, ``slstm``
-and ``mlstm`` block kinds are ported so far; every other kind raises
+The ``attn``, ``local`` (sliding-window attention), ``moe`` (attention
+and a Mixture-of-Experts FFN, ``models/moe.py``), ``rglru``, ``slstm`` and
+``mlstm`` block kinds are ported so far; every other kind raises
 ``NotImplementedError`` naming its ROADMAP item.
 
 Public API:
@@ -39,12 +40,12 @@ from .config import ModelConfig
 from .layers import (Params, _weak, apply_mlp, apply_norm, attention_block,
                      decode_attention, dense_init, dtype_of, embed_init,
                      init_attention, init_kv_cache, init_mlp, init_norm)
+from .moe import apply_moe, init_moe
 
 Batch = Dict[str, torch.Tensor]
 
 # Block kinds still to port, with the ROADMAP.md module item that ports them.
 _UNPORTED = {
-    "moe": "ROADMAP 1.10 (deepseek-moe-16b, arctic-480b)",
     "xattn": "ROADMAP 1.11 (llama-3.2-vision-90b)",
     "encdec": "ROADMAP 1.11 (whisper-small)",
 }
@@ -70,11 +71,16 @@ def _check_kind(kind: str) -> None:
 def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
     _check_kind(kind)
     p: Params = {"norm1": init_norm(cfg, gen.device)}
-    if kind in ("attn", "local"):
+    if kind in ("attn", "local", "moe"):
         p["attn"] = init_attention(gen, cfg)
     if kind in _RECURRENT:
         p[kind] = getattr(rec, f"init_{kind}")(gen, cfg)
-    if kind in ("attn", "local", "rglru") and cfg.d_ff:
+    if kind == "moe":
+        p["norm2"] = init_norm(cfg, gen.device)
+        p["moe"] = init_moe(gen, cfg)
+        if cfg.dense_residual_ff:
+            p["dense_ff"] = init_mlp(gen, cfg, d_ff=cfg.dense_residual_ff)
+    elif kind in ("attn", "local", "rglru") and cfg.d_ff:
         p["norm2"] = init_norm(cfg, gen.device)
         p["mlp"] = init_mlp(gen, cfg)
     return p
@@ -89,7 +95,7 @@ def _apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     _check_kind(kind)
     aux = _zero_aux(x.device)
-    if kind in ("attn", "local"):
+    if kind in ("attn", "local", "moe"):
         w = cfg.window if kind == "local" else 0
         x = x + attention_block(p["attn"], apply_norm(p["norm1"], x, cfg),
                                 cfg, positions, window=w,
@@ -97,9 +103,24 @@ def _apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
     if kind in _RECURRENT:
         x = x + getattr(rec, f"apply_{kind}")(
             p[kind], apply_norm(p["norm1"], x, cfg), cfg)
+    if kind == "moe":
+        y, moe_aux = _apply_moe_ffn(p, x, cfg)
+        x = x + y
+        aux = {"aux_loss": moe_aux["aux_loss"], "z_loss": moe_aux["z_loss"]}
     if "mlp" in p:
         x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
     return x, aux
+
+
+def _apply_moe_ffn(p: Params, x: torch.Tensor,
+                   cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """The ``moe`` block's FFN: the MoE, plus the dense residual FFN on the
+    same normed input where the arch has one (arctic-480b)."""
+    h = apply_norm(p["norm2"], x, cfg)
+    y, aux = apply_moe(p["moe"], h, cfg)
+    if "dense_ff" in p:
+        y = y + apply_mlp(p["dense_ff"], h, cfg)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -132,13 +153,17 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
                 return {f"s{si}_{kind}": _init_block(gen, kind, cfg)
                         for si, kind in enumerate(cfg.pattern)}
             # each group is copied into its row as it is drawn, so the
-            # weights are never held twice
+            # weights are never held twice; one group is its own row (one
+            # full-width arctic-480b layer is 56.3 GB)
             first = group()
-            p["scan"] = tree_map(
-                lambda x: x.new_empty((cfg.n_groups, *x.shape)), first)
-            for g in range(cfg.n_groups):
-                tree_map(lambda dst, src: dst[g].copy_(src), p["scan"],
-                         first if g == 0 else group())
+            if cfg.n_groups == 1:
+                p["scan"] = tree_map(lambda x: x.unsqueeze(0), first)
+            else:
+                p["scan"] = tree_map(
+                    lambda x: x.new_empty((cfg.n_groups, *x.shape)), first)
+                for g in range(cfg.n_groups):
+                    tree_map(lambda dst, src: dst[g].copy_(src), p["scan"],
+                             first if g == 0 else group())
             del first
         if cfg.n_tail:
             p["tail"] = {f"t{si}_{kind}": _init_block(gen, kind, cfg)
@@ -375,7 +400,7 @@ def decode_state_shapes(cfg: ModelConfig, batch: int, max_len: int):
 def _step_block(kind: str, p: Params, x: torch.Tensor, st: Params,
                 pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """One block for one token; writes the slot's new state into ``st``."""
-    if kind in ("attn", "local"):
+    if kind in ("attn", "local", "moe"):
         w = cfg.window if kind == "local" else 0
         h = apply_norm(p["norm1"], x, cfg)
         y, _, _ = decode_attention(p["attn"], h, st["k"], st["v"], pos, cfg,
@@ -387,6 +412,8 @@ def _step_block(kind: str, p: Params, x: torch.Tensor, st: Params,
         for name, t in s2.items():
             st[name].copy_(t)
         x = x + y
+    if kind == "moe":
+        x = x + _apply_moe_ffn(p, x, cfg)[0]
     if "mlp" in p:
         x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
     return x

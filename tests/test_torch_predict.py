@@ -33,6 +33,7 @@ from repro_torch.core.flop_count import (H100_SXM, GpuSpec, RooflineTerms,
 from repro_torch.kernels import ref
 from repro_torch.launch import whatif
 from repro_torch.launch.steps import make_train_step as port_train_step
+from repro_torch.models import moe as port_moe
 from repro_torch.models import transformer as port_tf
 from repro_torch.optim import make_optimizer as port_optimizer
 
@@ -79,7 +80,8 @@ def _flat(tree, path=()):
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b",
-                                  "xlstm-350m"])
+                                  "xlstm-350m", "deepseek-moe-16b",
+                                  "arctic-480b"])
 def test_param_shapes_match_the_ports_init(arch):
     cfg = port_config(arch, smoke=True)
     params = port_tf.init_params(torch.Generator().manual_seed(0), cfg)
@@ -150,8 +152,9 @@ def _port_step_flops(arch, flash):
                                  {"tokens": toks, "labels": toks})
 
 
-@pytest.mark.parametrize("flash", [False, True])
-@pytest.mark.parametrize("arch", ["gemma-7b", "granite-8b"])
+@pytest.mark.parametrize("arch,flash", [
+    ("gemma-7b", False), ("gemma-7b", True), ("granite-8b", False),
+    ("granite-8b", True), ("deepseek-moe-16b", False)])
 def test_step_flops_match_the_compiled_jax_step(arch, flash):
     """One smoke training step (S = 256, remat on) counted on the CPU
     against ``parse_hlo_profile`` of the JAX step compiled on the CPU.
@@ -169,9 +172,21 @@ def test_step_flops_match_the_compiled_jax_step(arch, flash):
         through the flash op's FLOP formula;
       * u: the plain VJP recomputes the attention forward; XLA drops its
         output product P·V as dead, the port computes it.
+
+    An MoE block has one such gap of its own: the remat recompute ends at
+    the shared experts' (or the dense residual FFN's) last needed input,
+    which comes after the MoE's combine product ``necd,ngec->ngd``. That
+    product's output is dead there: XLA drops it, ``torch.utils.checkpoint``
+    computes it, 2·n·G·E·C·d FLOPs a layer.
     """
     cfg, got = _port_step_flops(arch, flash)
     want = _jax_step_flops(arch, flash)
+    if cfg.moe is not None:
+        t = 2 * S
+        _, g = port_moe.group_split(t, cfg.moe.group_size)
+        combine = 2 * t * cfg.moe.num_experts * port_moe.capacity(cfg, g) \
+            * cfg.d_model
+        want += cfg.n_layers * combine
     if flash:
         u = 2 * 2 * cfg.n_heads * S * S * cfg.head_dim
         n_attn = sum(k == "attn" for k in cfg.pattern) * cfg.n_groups

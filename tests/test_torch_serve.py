@@ -1,10 +1,11 @@
 """The port's decode path against the JAX package: ``decode_attention`` (full
 cache and a wrapping ring), ``step_rglru`` and the conv state,
-``serve_step`` step by step for the six portable archs, decode with
+``serve_step`` step by step for the eight ported archs, decode with
 teacher forcing against ``forward``, the decode state's layout, the
 prefill and grad step factories and the CPU serve loop. Inputs come from
 numpy; JAX-initialised weights are carried across."""
 import argparse
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +33,7 @@ from repro_torch.tree import leaves, tree_map
 TOL = 1e-5
 KEY = jax.random.PRNGKey(7)
 ARCHS = ["gemma-7b", "granite-8b", "phi4-mini-3.8b", "starcoder2-7b",
-         "recurrentgemma-2b", "xlstm-350m"]
+         "recurrentgemma-2b", "xlstm-350m", "deepseek-moe-16b", "arctic-480b"]
 
 
 def carried(jp):
@@ -54,9 +55,12 @@ def tokens(vocab, b, s, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (b, s))
 
 
-def setup(arch, **kw):
+def setup(arch, capacity_factor=None, **kw):
     jc = jax_config(arch, smoke=True).replace(**kw)
     tc = get_config(arch, smoke=True).replace(**kw)
+    if capacity_factor is not None:
+        jc, tc = (c.replace(moe=dataclasses.replace(
+            c.moe, capacity_factor=capacity_factor)) for c in (jc, tc))
     jp = jt.init_params(KEY, jc)
     return jc, tc, jp, carried(jp)
 
@@ -195,6 +199,21 @@ def test_serve_step_bf16_gemma_matches_jax():
         logits_close(got, want, vocab, 2e-2)
 
 
+@pytest.mark.parametrize("arch,heads", [("deepseek-moe-16b", {}),
+                                        ("arctic-480b",
+                                         {"n_heads": 14, "n_kv": 2})])
+def test_serve_step_bf16_moe_matches_jax(arch, heads):
+    """bf16 decode of the MoE archs at the capacity factor that drops
+    nothing (E/k), the same widths as the gemma case; arctic-480b with 7
+    query heads a kv head, as at its full width."""
+    moe = get_config(arch, smoke=True).moe
+    for got, want in serve_both(arch, 8, dtype="bfloat16", d_model=96,
+                                head_dim=24, **heads,
+                                capacity_factor=moe.num_experts / moe.top_k):
+        assert got.dtype == torch.bfloat16
+        logits_close(got, want, 256, 2e-2)
+
+
 def test_serve_step_bf16_weak_scalars_bit_equal_jax(monkeypatch):
     """The two weak scalars of a bf16 ``serve_step`` bit for bit: the
     embedding scale sqrt(96) (9.80 in fp32, 9.8125 in bf16) and a softcap
@@ -250,8 +269,14 @@ def test_serve_step_bf16_weak_scalars_bit_equal_jax(monkeypatch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_teacher_forced_matches_forward(arch):
     """The reference's bound (``test_models.py``), on the port alone, over
-    the real vocab."""
+    the real vocab. An MoE arch runs at a capacity factor of E/k, where
+    nothing drops (C = G in the forward, C = B in decode): at its own
+    factor the forward drops assignments that decode keeps, in the
+    reference too (``test_torch_moe.py``, ROADMAP §3)."""
     tc = get_config(arch, smoke=True)
+    if tc.moe is not None:
+        tc = tc.replace(moe=dataclasses.replace(
+            tc.moe, capacity_factor=tc.moe.num_experts / tc.moe.top_k))
     tp = tt.init_params(torch.Generator().manual_seed(0), tc)
     b, s = 2, 8
     toks = torch.from_numpy(tokens(tc.vocab, b, s, seed=3))
@@ -295,7 +320,6 @@ def test_decode_state_shapes_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek-moe-16b", "1.10"),
     ("llama-3.2-vision-90b", "1.11"), ("whisper-small", "1.11")])
 def test_unported_kinds_raise(arch, item):
     cfg = get_config(arch, smoke=True)
@@ -330,7 +354,8 @@ def test_serve_step_factory_is_serve_step():
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b",
-                                  "xlstm-350m"])
+                                  "xlstm-350m", "deepseek-moe-16b",
+                                  "arctic-480b"])
 def test_grad_step_matches_jax(arch):
     jc, tc, jp, tp = setup(arch)
     toks = tokens(jc.vocab, 2, 33, seed=1)
@@ -390,7 +415,8 @@ def test_serve_run_matches_jax_serve(arch, monkeypatch, capsys):
 
 @pytest.mark.parametrize("arch,layers", [("gemma-7b", 1),
                                          ("recurrentgemma-2b", 4),
-                                         ("xlstm-350m", 2)])
+                                         ("xlstm-350m", 2),
+                                         ("arctic-480b", 1)])
 def test_serve_run_layers_and_what_it_served(arch, layers):
     """``--layers`` cuts the depth; ``run`` returns the prompts and weights
     it served, and feeding the prompt and the generated ids back through
