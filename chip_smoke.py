@@ -17,14 +17,17 @@ for each source, all started together), then
      16, 16, 256) on its first and last 512 rows, q scaled by 8 so each
      row's softmax picks a few keys and a lost or misplaced key tile moves
      the output by O(1) (a full plain version would need a 68 GB score
-     tensor), at deepseek-moe-16b's path shape (2, 2048, 16, 16, 128) and
+     tensor), at deepseek-moe-16b's path shape (2, 2048, 16, 16, 128),
      arctic-480b's attention (1, 2048, 56, 8, 128: 7 query heads a kv
-     head), and each autograd op's gradients against plain autograd, the
-     scan's also at its path shape (forward and the kernel's reverse mode);
+     head) and whisper-small's decoder (8, 512, 12, 12, 64), at
+     llama-3.2-vision-90b's prefill shape (1, 32768, 64, 8, 128) on its
+     first and last 512 rows as at the prefill shape, and each autograd
+     op's gradients against plain autograd, the scan's also at its path
+     shape (forward and the kernel's reverse mode);
   2. checks each model on the card against itself with the kernels off
      (gemma-7b smoke config with head_dim 64 in fp32 and head_dim 256 in
-     bf16, and recurrentgemma-2b smoke in fp32; S = 256: loss and
-     gradients);
+     bf16, recurrentgemma-2b smoke in fp32, and whisper-small smoke with
+     head_dim 64 in fp32, its frames given; S = 256: loss and gradients);
   3. drives each training path through ``repro_torch.launch.train.run``,
      5 AdamW steps at B = 2, S = 2048, bf16, remat, kernels on, with the
      launch counts set to 0 just before and read just after:
@@ -33,8 +36,8 @@ for each source, all started together), then
      and holds each path's step-1 loss to the one recorded in PERF.md;
   4. times each kernel, its plain version and the nearest PyTorch library
      call at its path's shape, beside the card's bound, with the achieved
-     TFLOP/s (flash, also at deepseek-moe-16b's path shape) and GB/s (scan,
-     both directions);
+     TFLOP/s (flash, also at deepseek-moe-16b's and whisper-small's path
+     shapes) and GB/s (scan, both directions);
   5. profiles one more training step of each path (device time by kernel,
      idle share);
   6. closes the paper's loop on the card (``repro_torch.core``):
@@ -141,7 +144,42 @@ for each source, all started together), then
           factor held to the recorded counts;
        e. serves one full-width arctic-480b layer (56.3 GB of fp32 weights)
           through ``serve.run --full --layers 1``, B = 8, 32 + 32 tokens,
-          checked as 10d.
+          checked as 10d;
+ 11. the encoder and cross-attention (no kernel of their own: the encoder's
+     bidirectional attention and every cross-attention are plain einsums,
+     as in the reference; the decoders' causal self-attention runs the
+     flash kernel). Every ``xattn`` gate, 0 at the reference's init (so
+     that the cross-attention would add nothing), is set to a nonzero
+     value first:
+       a. the whisper-small and llama-3.2-vision-90b smoke models (fp32,
+          S = 64, gates 0.5, their frames or patch embeddings given) on the
+          card against the CPU from the same numpy weights and batch, remat
+          off and on, as 9a;
+       b. trains whisper-small at full width and depth (12 encoder and 12
+          decoder layers) through ``train.run``: 5 AdamW steps, B = 8,
+          S = 512, frames (8, 1500, 768), bf16, remat, kernels on, launch
+          counts set to 0 just before and read just after (120 flash
+          launches, no scan), its peak under 75 GB and its step-1 loss held
+          to the recorded one; a profile of one more step, and the step's
+          FLOPs on fake tensors beside 6·N·D over the decoder's tokens and
+          beside 6·N·D over the matrix products' parameters, the encoder's
+          over its 1,500 frames a row;
+       c. serves whisper-small at full depth as phase 7 (B = 8, 128 + 128
+          tokens, the encoder states and cross K/V filled once), the
+          teacher-forced check in bf16 on the same frames, and another draw
+          of frames moving the logits by more than 10x the check's error;
+       d. serves one full-width llama-3.2-vision-90b pattern group (4
+          ``attn`` + 1 ``xattn`` layer, 25.5 GB of fp32 weights) through
+          ``serve.run --full --layers 5`` with every gate at 1.0, checked
+          as 11c through its patch embeddings (8, 1601, 8192) but gated in
+          fp32: another draw of them moves the logits by about 0.01, under
+          the bf16 check's error, so only the fp32 check sees the
+          cross-attention (the bf16 error is printed); with the gates at 0
+          another draw leaves the logits bit-equal;
+       e. prefills that group at ``prefill_32k`` for one card (B = 1,
+          S = 32768) through ``make_prefill_step``, the flash kernel on: one
+          warm-up, 3 timed runs of 4 flash launches each, finite logits, the
+          peak, and a profile of one more prefill.
 
 Each result is printed as it comes; the line before the card's name is one
 JSON object with the kernels, and the last line is
@@ -233,6 +271,22 @@ DEEPSEEK_ARGV = ["--arch", DEEPSEEK, "--layers", "4", *COMMON_ARGV]
 ARCTIC_SERVE_ARGV = ["--full", "--layers", "1", "--batch", "8",
                      "--prompt-len", "32", "--gen", "32", "--device", "cuda"]
 MOE_SMOKE_SEQ = 64                      # 10a: the smoke models, card vs CPU
+WHISPER, LLAMA = "whisper-small", "llama-3.2-vision-90b"
+WHISPER_SLICE = (8, 512, 12, 12, 64)    # flash on whisper-small's decoder
+LLAMA_PREFILL = (1, 32768, 64, 8, 128)  # ... llama-3.2-vision-90b's prefill
+# whisper-small at full width and depth: 12 encoder and 12 decoder layers,
+# 304,809,984 parameters, 4.88 GB of fp32 state. S = 512 is the nearest
+# length to its 448-token text context that the flash kernel's block rule
+# admits: B = 8 gives 4,096 decoder tokens a step, as the other paths
+WHISPER_ARGV = ["--arch", WHISPER, "--full", "--batch", "8", "--seq", "512",
+                "--steps", "5", "--device", "cuda", "--log-every", "1"]
+# one full-width llama-3.2-vision-90b pattern group (4 attn + 1 gated xattn
+# layer): 6,383,820,801 parameters, 25.5 GB of fp32 weights; its AdamW
+# state (102 GB) waits for sharding
+LLAMA_SERVE_ARGV = ["--full", "--layers", "5", *SERVE_ARGV[1:]]
+XATTN_SMOKE_SEQ = 64                    # 11a: the smoke models, card vs CPU
+SMOKE_GATE = 0.5        # xattn gates of the smoke models (11a)
+SERVE_GATE = 1.0        # ... of the served llama-3.2-vision-90b group (11d)
 PEAK_LIMIT = 75e9       # a path that peaks above this has its depth cut
 LOSS_LINE = re.compile(r"^step\s+\d+ loss\s+(\S+)", re.M)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -241,7 +295,7 @@ DTYPES = ("float32", "bfloat16")
 # Step-1 losses of the seeded training paths as PERF.md records them (the
 # same seeds, the same data; a kernel that is right moves them by far less).
 STEP1_LOSS = {"gemma-7b": 13.2019, "recurrentgemma-2b": 12.9457,
-              XLSTM: 11.3643, DEEPSEEK: 12.8005}
+              XLSTM: 11.3643, DEEPSEEK: 12.8005, WHISPER: 11.3512}
 STEP1_TOL = 0.01
 # Routed MoE assignments (dropped, assigned) at the configs' own capacity
 # factor, as PERF.md records them (the same seeds and data, NVIDIA H100
@@ -331,7 +385,7 @@ def time_flash(shape, inputs, kernel, plain) -> dict:
     plain_ms = cuda_ms(lambda: plain(q, k, v), iters=5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters=20)
+        qt, kt, vt, is_causal=True, enable_gqa=h != kv), iters=20)
     bound_ms, by = attention_bound(b, s, h, kv, d, s, "bfloat16")
     flops = 4 * b * h * d * attention_pairs(s, s, True, 0)
     print(f"flash_attention at {shape} bf16 causal: kernel {ms:.4f} ms "
@@ -424,7 +478,7 @@ def main() -> int:
     cases = [(shape, dt, causal, window, t)
              for shape, causal, window, t in rows for dt in DTYPES]
     cases += [(shape, "bfloat16", True, 0, None)
-              for shape in (SLICE, MOE_SLICE, ARCTIC_SLICE)]
+              for shape in (SLICE, MOE_SLICE, ARCTIC_SLICE, WHISPER_SLICE)]
     slice_err = {}
     for shape, dt, causal, window, t in cases:
         q, k, v = inputs(*shape, dt, t=t)
@@ -434,11 +488,13 @@ def main() -> int:
         err = check_close(f"flash kernel-vs-plain {shape} t={t or shape[1]} "
                           f"{dt} causal={causal} window={window}", out, want,
                           TOL[dt])
-        if shape in (SLICE, MOE_SLICE) and dt == "bfloat16":
+        if shape in (SLICE, MOE_SLICE, WHISPER_SLICE) and dt == "bfloat16":
             slice_err[shape] = err
         del q, k, v, out, want
 
-    prefill = prefill_rows(inputs, flash_attention_fwd, flash_attention_ref)
+    prefill, llama_prefill = (
+        prefill_rows(inputs, flash_attention_fwd, flash_attention_ref, shape)
+        for shape in (PREFILL, LLAMA_PREFILL))
 
     # the autograd op on CUDA tensors: kernel forward, reference backward
     q, k, v = (x.requires_grad_() for x in inputs(1, 256, 2, 2, 64,
@@ -529,6 +585,7 @@ def main() -> int:
     model_on_off("gemma-7b", head_dim=64)
     model_on_off("gemma-7b", head_dim=256, dtype="bfloat16")
     model_on_off("recurrentgemma-2b")
+    model_on_off(WHISPER, head_dim=64)
 
     # -- phase 3: the training paths ----------------------------------------
     mark("3")
@@ -551,7 +608,7 @@ def main() -> int:
     saved = {k: c.launches for k, c in counters.items()}
     fa = {shape: time_flash(shape, inputs, flash_attention_fwd,
                             flash_attention_ref)
-          for shape in (SLICE, MOE_SLICE)}
+          for shape in (SLICE, MOE_SLICE, WHISPER_SLICE)}
 
     a, b = scan_inputs(RG_SHAPE)
     rg_ms = cuda_ms(lambda: rglru_scan_fwd(a, b), iters=50)
@@ -624,11 +681,28 @@ def main() -> int:
     serve_phase("10e", ARCTIC, counters, gate_dtype="float32",
                 argv=ARCTIC_SERVE_ARGV)
 
+    # -- phase 11: the encoder and cross-attention --------------------------
+    mark("11")
+    for arch in (WHISPER, LLAMA):
+        card_vs_cpu("11a", arch, XATTN_SMOKE_SEQ, ({}, {"remat": True}))
+    whisper = whisper_train_phase(counters)
+    serve_phase("11c", WHISPER, counters)
+    # gated in fp32: the patch embeddings move the logits by less than the
+    # bf16 check's own error, which could not tell a lost cross K/V
+    serve_phase("11d", LLAMA, counters, gate_dtype="float32",
+                argv=LLAMA_SERVE_ARGV, gate=SERVE_GATE)
+    mark("11e")
+    llama_prefill_launches = prefill_phase(counters, "11e", LLAMA, layers=5)
+
     flash_launches = {"train gemma-7b 4 layers x 5 steps":
                       gemma["launches"]["flash_attention"],
                       "train deepseek-moe-16b 4 layers x 5 steps":
                       deepseek["launches"]["flash_attention"],
+                      "train whisper-small 12 layers x 5 steps":
+                      whisper["launches"]["flash_attention"],
                       "prefill gemma-7b 28 layers x 3 runs": prefill_launches,
+                      "prefill llama-3.2-vision-90b 5 layers x 3 runs":
+                      llama_prefill_launches,
                       **restart["launches"], **async_launches}
     kernels = [{
         "name": "flash_attention",
@@ -648,6 +722,16 @@ def main() -> int:
         "prefill_ms": prefill["ms"],
         "prefill_bound_ms": prefill["bound_ms"],
         "prefill_library_ms": prefill["library_ms"],
+        "whisper_shape": list(WHISPER_SLICE),
+        "whisper_max_abs_err": slice_err[WHISPER_SLICE],
+        **{f"whisper_{k}": x for k, x in fa[WHISPER_SLICE].items()},
+        "llama_prefill_shape": list(LLAMA_PREFILL),
+        "llama_prefill_max_abs_err_first_rows": llama_prefill["err_first"],
+        "llama_prefill_max_abs_err_last_rows": llama_prefill["err_last"],
+        "llama_prefill_ms": llama_prefill["ms"],
+        "llama_prefill_bound_ms": llama_prefill["bound_ms"],
+        "llama_prefill_bound_by": llama_prefill["bound_by"],
+        "llama_prefill_library_ms": llama_prefill["library_ms"],
     }, {
         "name": "rglru_scan",
         "route": "cuda",
@@ -979,21 +1063,28 @@ def check_step1(prefix: str, arch: str, got: float) -> None:
 
 
 def card_vs_cpu(label: str, arch: str, seq: int, overrides) -> None:
-    """Phases 9a and 10a: an arch's smoke model (fp32) on the card against
-    the CPU, from the same numpy weights and batch (B = 2, S = ``seq``):
+    """Phases 9a, 10a and 11a: an arch's smoke model (fp32) on the card
+    against the CPU, from the same numpy weights and batch (B = 2, S =
+    ``seq``; an encoder arch's frames and a cross-attention arch's patch
+    embeddings, 0.1·N(0, 1), and every ``xattn`` gate at ``SMOKE_GATE``):
     the loss within 1e-5 relative and every gradient within 1e-4, once for
     each dict of config ``overrides`` (9a: as configured, then with remat
     and a time chunk of 16, the chunked time scan under the group remat)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import stub_inputs
     from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.models import transformer
     from repro_torch.tree import leaves
     base = get_config(arch, smoke=True)
     weights = params_to_numpy(transformer.init_params(
         torch.Generator().manual_seed(3), base))
-    toks = np.random.default_rng(4).integers(0, base.vocab, (2, seq + 1))
+    set_gates(weights, SMOKE_GATE)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, base.vocab, (2, seq + 1))
+    stubs = {name: rng.standard_normal(shape, dtype=np.float32) * 0.1
+             for name, (shape, _) in stub_inputs(base, 2).items()}
     for over in overrides:
         cfg = base.replace(**over)
         res = {}
@@ -1001,7 +1092,9 @@ def card_vs_cpu(label: str, arch: str, seq: int, overrides) -> None:
             params = params_from_numpy(weights, dev)
             t = torch.from_numpy(toks).to(dev)
             loss, _ = transformer.loss_fn(
-                params, {"tokens": t[:, :-1], "labels": t[:, 1:]}, cfg)
+                params, {"tokens": t[:, :-1], "labels": t[:, 1:],
+                         **{k: torch.from_numpy(v).to(dev)
+                            for k, v in stubs.items()}}, cfg)
             grads = torch.autograd.grad(loss, list(leaves(params)))
             res[dev] = (loss.item(), [g.cpu() for g in grads])
         (card, gcard), (cpu, gcpu) = res["cuda"], res["cpu"]
@@ -1113,10 +1206,11 @@ def xlstm_restart(path: dict, counters) -> None:
     torch.cuda.empty_cache()
 
 
-def prefill_rows(inputs, kernel, plain) -> dict:
-    """Phase 1a at the prefill shape: the kernel's first and last
-    ``PREFILL_ROWS`` rows against the plain version (the last rows right-
-    aligned against all T keys), its time, SDPA's, and the bound.
+def prefill_rows(inputs, kernel, plain, shape) -> dict:
+    """Phase 1a at a prefill shape (gemma-7b's, llama-3.2-vision-90b's):
+    the kernel's first and last ``PREFILL_ROWS`` rows against the plain
+    version (the last rows right-aligned against all T keys), its time,
+    SDPA's (with its grouped-query option where H > Kv), and the bound.
 
     q is scaled by ``PREFILL_Q_SCALE`` (exact in bf16): with N(0, 1) inputs
     the last rows would average v over 32k keys, outputs of about 0.007
@@ -1125,9 +1219,9 @@ def prefill_rows(inputs, kernel, plain) -> dict:
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    b, s, h, kv, d = PREFILL
+    b, s, h, kv, d = shape
     n = PREFILL_ROWS
-    q, k, v = inputs(*PREFILL, "bfloat16")
+    q, k, v = inputs(*shape, "bfloat16")
     q.mul_(PREFILL_Q_SCALE)
     out = kernel(q, k, v)
     torch.cuda.synchronize()
@@ -1136,11 +1230,11 @@ def prefill_rows(inputs, kernel, plain) -> dict:
             (f"0:{n}", out[:, :n], plain(q[:, :n], k[:, :n], v[:, :n])),
             (f"{s - n}:{s}", out[:, -n:], plain(q[:, -n:], k, v))):
         rel = (got.float() - want.float()).norm() / want.float().norm()
-        print(f"flash at {PREFILL}, rows {rows}: max |plain| "
+        print(f"flash at {shape}, rows {rows}: max |plain| "
               f"{want.float().abs().max().item():.3f}, relative norm error "
               f"{rel.item():.3e}")
         errs.append(check_close(
-            f"flash kernel-vs-plain {PREFILL} bf16 causal, q x "
+            f"flash kernel-vs-plain {shape} bf16 causal, q x "
             f"{PREFILL_Q_SCALE}, rows {rows}", got, want, TOL["bfloat16"]))
     del out, got, want
     ms = cuda_ms(lambda: kernel(q, k, v), iters=5, warmup=1)
@@ -1150,11 +1244,12 @@ def prefill_rows(inputs, kernel, plain) -> dict:
              SDPBackend.CUDNN_ATTENTION]
     with sdpa_kernel(fused):
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), iters=5, warmup=1)
+            qt, kt, vt, is_causal=True, enable_gqa=h != kv), iters=5,
+            warmup=1)
     del qt, kt, vt
     bound_ms, by = attention_bound(b, s, h, kv, d, s, "bfloat16")
     flops = 4 * b * h * d * attention_pairs(s, s, True, 0)
-    print(f"flash_attention at {PREFILL} bf16 causal: kernel {ms:.4f} ms "
+    print(f"flash_attention at {shape} bf16 causal: kernel {ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), sdpa {lib:.4f} ms "
           f"({flops / lib / 1e9:.1f} TFLOP/s), bound "
           f"{bound_ms:.4f} ms ({by}, "
@@ -1162,22 +1257,31 @@ def prefill_rows(inputs, kernel, plain) -> dict:
           f"shape (its score tensor would take "
           f"{4 * b * h * s * s / 1e9:.1f} GB)", flush=True)
     return {"err_first": errs[0], "err_last": errs[1], "ms": ms,
-            "bound_ms": bound_ms, "library_ms": lib}
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib}
 
 
-def teacher_forced(params, cfg, toks):
-    """``serve_step`` over ``toks`` (B, T) from a fresh state of length T,
-    each position's logits against ``forward``'s on the same tokens, over
-    the real vocab. Returns the max error at each position (on the host),
-    ``forward``'s logits, the decode's argmax (B, T) on the host and the
-    final decode state."""
+def teacher_forced(params, cfg, toks, stubs):
+    """``serve_step`` over ``toks`` (B, T) from a fresh state of length T
+    (its cross K/V filled from ``stubs``, the frames or patch embeddings, in
+    ``cfg.dtype``), each position's logits against ``forward``'s on the
+    same tokens and stubs, over the real vocab. Returns the max error at
+    each position (on the host), ``forward``'s logits, the decode's argmax
+    (B, T) on the host and the final decode state."""
     import torch
     from repro_torch.models import transformer
+    from repro_torch.models.layers import dtype_of
     b, t = toks.shape
+    stubs = {k: v.to(dtype_of(cfg.dtype)) for k, v in stubs.items()}
     with torch.inference_mode():
-        full = transformer.forward(params, {"tokens": toks}, cfg)[0]
+        full = transformer.forward(params, {"tokens": toks, **stubs}, cfg)[0]
     full = full[..., :cfg.vocab]
     state = transformer.init_decode_state(cfg, b, t, "cuda")
+    if cfg.cross_len:
+        with torch.no_grad():
+            enc = transformer._get_encoder_states(params, stubs, cfg)
+        state = transformer.precompute_cross_kv(
+            params, state, enc.to(dtype_of(cfg.dtype)), cfg)
+        del enc
     errs, greedy = [], []
     for i in range(t):
         li, state = transformer.serve_step(params, state, toks[:, i], cfg)
@@ -1189,12 +1293,17 @@ def teacher_forced(params, cfg, toks):
 
 
 def serve_phase(label: str, arch: str, counters, gate_dtype: str = "",
-                argv=SERVE_ARGV) -> None:
-    """Phases 7a, 7b, 9d, 10d and 10e: ``serve.run`` (``argv``: full width
-    and depth unless it cuts them), then decode with teacher forcing against
-    ``forward``, gated at the reference's bound in ``gate_dtype`` when it is
-    given (the served dtype's error is then printed beside the forward's
-    own spread), else in the served dtype.
+                argv=SERVE_ARGV, gate: float = 0.0) -> None:
+    """Phases 7a, 7b, 9d, 10d, 10e, 11c and 11d: ``serve.run`` (``argv``:
+    full width and depth unless it cuts them), then decode with teacher
+    forcing against ``forward``, gated at the reference's bound in
+    ``gate_dtype`` when it is given (the served dtype's error is then
+    printed beside the forward's own spread), else in the served dtype.
+
+    A cross-attention arch serves with every ``xattn`` gate at ``gate``
+    (set in the weights ``serve.run`` draws), decodes from the cross K/V of
+    the frames or patch embeddings it returns, and its logits are then held
+    to move under another draw of them (``cross_matters``).
 
     An MoE arch's teacher-forced passes run at a capacity factor of E/k,
     where nothing drops (C = G in the forward, C = B in decode; each pass
@@ -1215,7 +1324,7 @@ def serve_phase(label: str, arch: str, counters, gate_dtype: str = "",
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
-    with counted_drops() as served_drops:
+    with counted_drops() as served_drops, gates_at(serve, gate):
         res = serve.run(args)
     launches = {k: c.launches for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1244,7 +1353,7 @@ def serve_phase(label: str, arch: str, counters, gate_dtype: str = "",
             f"{label}: generated ids out of range")
     require(all(n == 0 for n in launches.values()),
             f"{label}: the decode path launched a kernel")
-    params, prompts = res["params"], res["prompts"]
+    params, prompts, stubs = res["params"], res["prompts"], res["stubs"]
     del res
 
     # teacher forcing on what was served: the same weights, a state of the
@@ -1263,7 +1372,8 @@ def serve_phase(label: str, arch: str, counters, gate_dtype: str = "",
     torch.cuda.reset_peak_memory_stats()
     for c in (gate, checked) if gate_dtype else (checked,):
         with counted_drops() as drops:
-            errs, full, greedy, state = teacher_forced(params, c, toks)
+            errs, full, greedy, state = teacher_forced(params, c, toks,
+                                                       stubs)
         err = errs.max().item()
         # over the real vocab: a padded tail holds -finfo.max / 2
         scale = full.float().abs().max().item()
@@ -1289,7 +1399,8 @@ def serve_phase(label: str, arch: str, counters, gate_dtype: str = "",
             # not gated: the served dtype's forward disagrees with itself
             # by more than the bound when only the batch changes
             with torch.inference_mode():
-                one, _ = transformer.forward(params, {"tokens": toks[:1]}, c)
+                one, _ = transformer.forward(params, {"tokens": toks[:1], **{
+                    k: v[:1] for k, v in stubs.items()}}, c)
             spread = (one[0, :, :c.vocab].float()
                       - full[0].float()).abs().max().item()
             print(f"{line}, not gated; forward of row 0 alone against its "
@@ -1302,7 +1413,10 @@ def serve_phase(label: str, arch: str, counters, gate_dtype: str = "",
               f"this decode's argmax: {same:.4f}", flush=True)
         require(math.isfinite(err) and err < tol,
                 f"{label}: decode disagrees with forward")
+        gated = (c, err, tol)
     del full, greedy
+    if stubs:
+        cross_matters(label, params, *gated, toks, stubs)
     checked_peak = torch.cuda.max_memory_allocated()
     print(f"{label} serve {arch}: peak memory of the teacher-forced passes "
           f"{checked_peak / 2**30:.2f} GiB ({checked_peak / 1e9:.2f} GB)",
@@ -1353,6 +1467,106 @@ def serve_phase(label: str, arch: str, counters, gate_dtype: str = "",
     report_profile(f"{label} serve {arch}: profile of 4 decode steps", prof,
                    wall_ms)
     del params, state
+
+
+def gate_leaves(tree) -> list:
+    """Every ``gate`` leaf (an ``xattn`` layer's tanh gate) of a weight
+    tree."""
+    found = []
+    for key, sub in tree.items():
+        if key == "gate":
+            found.append(sub)
+        elif isinstance(sub, dict):
+            found += gate_leaves(sub)
+    return found
+
+
+def set_gates(tree, value: float) -> None:
+    """Sets every gate leaf of a weight tree, numpy or torch, to ``value``
+    in place."""
+    import torch
+    for g in gate_leaves(tree):
+        if isinstance(g, torch.Tensor):
+            with torch.no_grad():
+                g.fill_(value)
+        else:
+            g[...] = value
+
+
+@contextlib.contextmanager
+def gates_at(serve, value: float):
+    """Inside the block, ``serve.run`` serves weights whose ``xattn`` gates
+    are at ``value`` (the reference draws them at 0); nothing at 0."""
+    real = serve.init_params
+
+    def init_params(gen, cfg):
+        params = real(gen, cfg)
+        set_gates(params, value)
+        return params
+
+    if value:
+        serve.init_params = init_params
+    try:
+        yield
+    finally:
+        serve.init_params = real
+
+
+def stub_tensors(cfg, b: int, seed: int) -> dict:
+    """The arch's frames or patch embeddings for a batch of ``b`` rows on the
+    card: 0.1·N(0, 1) in ``cfg.dtype``, from a seeded generator."""
+    import torch
+    from repro_torch.configs.shapes import stub_inputs
+    from repro_torch.models.layers import dtype_of
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {name: torch.randn(shape, device="cuda", generator=gen).mul_(0.1)
+            .to(dtype_of(dtype))
+            for name, (shape, dtype) in stub_inputs(cfg, b).items()}
+
+
+def cross_matters(label: str, params, cfg, err: float, tol: float, toks,
+                  stubs) -> None:
+    """Phases 11c and 11d: the teacher-forced check sees the
+    cross-attention. ``forward`` over the served tokens in ``cfg`` (the
+    gated check's: its error ``err``, its bound ``tol``) moves by more than
+    10x that error under another draw of the frames or patch embeddings,
+    so a decode that lost its cross K/V would fail the check; the move is
+    printed against 10x the bound too. With every gate at 0 (the
+    reference's init) another draw leaves the logits bit-equal."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import dtype_of
+    stubs = {k: v.to(dtype_of(cfg.dtype)) for k, v in stubs.items()}
+    other = stub_tensors(cfg, toks.shape[0], seed=7)
+
+    def moved():
+        with torch.inference_mode():
+            a, b = (transformer.forward(params, {"tokens": toks, **st}, cfg)[0]
+                    [..., :cfg.vocab].float() for st in (stubs, other))
+        return (a - b).abs().max().item()
+
+    names = ", ".join(stubs)
+    by = moved()
+    print(f"{label} {cfg.name}: another draw of {names} moves the "
+          f"{cfg.dtype} logits over the served tokens by {by:.4e}: 10x the "
+          f"teacher-forced error is {10 * err:.4e}, 10x its bound "
+          f"{10 * tol:.4e}", flush=True)
+    require(by > 10 * err, f"{label}: the {names} move the logits by less "
+            "than 10x the teacher-forced error")
+    gates = gate_leaves(params)
+    if gates:
+        kept = [g.detach().clone() for g in gates]
+        set_gates(params, 0.0)
+        try:
+            still = moved()
+        finally:
+            with torch.no_grad():
+                for g, k in zip(gates, kept):
+                    g.copy_(k)
+        print(f"{label} {cfg.name}: with the {len(gates)} gate leaves at 0 "
+              f"another draw moves them by {still:.4e}", flush=True)
+        require(still == 0.0, f"{label}: the {names} reach the logits "
+                "through a zero gate")
 
 
 class DropCount:
@@ -1530,22 +1744,94 @@ def moe_train_phase(counters) -> dict:
     return path
 
 
-def prefill_phase(counters) -> int:
-    """Phase 7c: gemma-7b's prefill at ``prefill_32k`` (B = 1 a card)
-    through ``make_prefill_step``, the flash kernel on; returns the flash
-    launches of the 3 timed runs."""
+def whisper_train_phase(counters) -> dict:
+    """Phase 11b: whisper-small at full width and depth through
+    ``train.run`` (launch counts set to 0 just before and read just after),
+    then a profile of one more step of that run and the step's FLOPs on
+    fake tensors, beside 6·N·D over the decoder's tokens and beside the
+    same with the encoder's parameters over its frames. Returns the path."""
+    import torch
+    from repro_torch.core.flop_count import (H100_SXM, count_train_flops,
+                                             model_flops_train)
+    from repro_torch.models.transformer import param_count_cfg, param_shapes
+    from repro_torch.tree import leaves
+    label = f"11b {WHISPER}"
+    path = drive(label, WHISPER_ARGV, counters, keep=True)
+    cfg, args = path["config"], path["args"]
+    launches, per_step = path["launches"], path["per_step"]
+    tokens = args.batch * args.seq
+    print(f"{label}: {cfg.encoder_layers} encoder + {cfg.n_layers} decoder "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, frames ({args.batch}, {cfg.encoder_len}, "
+          f"{cfg.d_model}); ms a step {path['steady_ms']:.1f} (median of "
+          f"steps 2-5), decoder tokens/s "
+          f"{tokens / path['steady_ms'] * 1e3:.1f}, peak "
+          f"{path['peak'] / 1e9:.2f} GB (limit {PEAK_LIMIT / 1e9:g}), "
+          f"step-1 loss {path['losses'][0]:.4f}", flush=True)
+    require(launches["flash_attention"] == per_step["attn"] * path["steps"]
+            and launches["rglru_scan"] == 0,
+            f"{label}: the flash launch count is off")
+    require(path["peak"] < PEAK_LIMIT, f"{label}: peak over the limit")
+    check_step1("11b ", WHISPER, path["losses"][0])
+
+    # one more step of the same run, profiled; the step's FLOPs
+    result = path.pop("result")
+    busy, kernels = profile_step(path, result)
+    del result
+    torch.cuda.empty_cache()
+    counted = count_train_flops(cfg, args.batch, args.seq)
+    model = model_flops_train(cfg, tokens)
+    # the parameters of matrix products: the token embedding and both
+    # position tables are lookups
+    shapes = param_shapes(cfg)
+    n_enc = sum(math.prod(x) for x in leaves(shapes["encoder"])) \
+        - math.prod(shapes["encoder"]["pos"])
+    n_dec = param_count_cfg(cfg) - n_enc - math.prod(shapes["embed"]) \
+        - math.prod(shapes["pos_embed"]) - math.prod(shapes["encoder"]["pos"])
+    frames = args.batch * cfg.encoder_len
+    split = 6 * n_dec * tokens + 6 * n_enc * frames
+    steady = path["steady_ms"] / 1e3
+    print(f"{label}: device busy {busy:.1f} ms in {kernels} kernels against "
+          f"the unprofiled {path['steady_ms']:.1f} ms a step "
+          f"({1 - busy / path['steady_ms']:.3f} idle); FLOPs of one step "
+          f"(FlopCounterMode on fake tensors, the frames included) "
+          f"{counted:.6e}; 6·N·D over the {tokens} decoder tokens "
+          f"{model:.6e} (ratio {counted / model:.4f}); 6·N·D over the "
+          f"parameters of matrix products, the encoder's {n_enc} over its "
+          f"{frames} frames and the decoder's {n_dec} over the tokens, "
+          f"{split:.6e} (ratio "
+          f"{counted / split:.4f}): the encoder's share is counted over "
+          f"{cfg.encoder_len} frames a row, not S = {args.seq} tokens; "
+          f"utilization {counted / steady / H100_SXM.peak_flops:.4f} of the "
+          f"bf16 peak", flush=True)
+    require(counted > split, f"{label}: the counted step has fewer FLOPs "
+            "than 6·N·D of its matrix products over the frames and tokens")
+    return path
+
+
+def prefill_phase(counters, label: str = "7c", arch: str = "gemma-7b",
+                  layers: int = 0) -> int:
+    """Phases 7c and 11e: an arch's prefill at ``prefill_32k`` (B = 1 a
+    card) through ``make_prefill_step``, the flash kernel on, with its
+    patch embeddings where it has them and its gates at ``SERVE_GATE``;
+    ``layers`` cuts the depth. Returns the flash launches of the 3 timed
+    runs."""
     import torch
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import transformer
     seq = SHAPES["prefill_32k"].seq_len
-    cfg = get_config("gemma-7b").replace(use_flash_kernel=True)
+    cfg = get_config(arch).replace(use_flash_kernel=True)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    name = f"{label} prefill {arch}"
     torch.cuda.empty_cache()
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(0), cfg)
-    batch = {"tokens": SyntheticLM(cfg, 1, seq, seed=0).next_batch()[
-        "tokens"].cuda()}
+    set_gates(params, SERVE_GATE)
+    batch = {k: v.cuda() for k, v in SyntheticLM(
+        cfg, 1, seq, seed=0).next_batch().items() if k != "labels"}
     step = make_prefill_step(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1564,20 +1850,29 @@ def prefill_phase(counters) -> int:
             del logits
     launches = {k: c.launches for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    lo, hi = logits.amin().float().item(), logits.amax().float().item()
+    real = logits[..., :cfg.vocab]        # a padded tail holds -finfo.max/2
+    lo, hi = real.amin().float().item(), real.amax().float().item()
+    del real
     shape = tuple(logits.shape)
     del logits
     prof, wall_ms = profiled(lambda: step(params, batch))
-    report_profile("7c prefill gemma-7b: profile of one prefill", prof,
-                   wall_ms)
-    del params
+    report_profile(f"{name}: profile of one prefill", prof, wall_ms)
+    del params, batch
     n_attn = sum(k == "attn" for k in cfg.pattern) * cfg.n_groups
-    flops = 2 * transformer.param_count_cfg(cfg) * seq \
-        + n_attn * 4 * cfg.n_heads * cfg.head_dim \
-        * attention_pairs(seq, seq, True, 0)
+    n_x = sum(k == "xattn" for k in cfg.pattern) * cfg.n_groups
+    t = cfg.cross_len
+    # 2·N·S over the parameters of the matrix products (an untied
+    # embedding is a lookup), the cross-attention's K and V over the T
+    # patches, not the S tokens; then the self- and cross-attention
+    xkv = n_x * 2 * cfg.d_model * cfg.n_kv * cfg.head_dim
+    n_mm = transformer.param_count_cfg(cfg) - xkv - (
+        0 if cfg.tie_embeddings else cfg.padded_vocab * cfg.d_model)
+    flops = 2 * n_mm * seq + 2 * xkv * t \
+        + 4 * cfg.n_heads * cfg.head_dim * (
+            n_attn * attention_pairs(seq, seq, True, 0) + n_x * seq * t)
     med = statistics.median(ms)
     bound_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    print(f"7c prefill gemma-7b: layers {cfg.n_layers}, B=1, S={seq}, "
+    print(f"{name}: layers {cfg.n_layers}, B=1, S={seq}, "
           f"bf16, flash kernel on: ms " + " / ".join(f"{x:.1f}" for x in ms)
           + f" (median {med:.1f}); tokens/s {seq / med * 1e3:.1f}; model "
           f"FLOPs {flops:.4e} (2·N·S + attention), {flops / med / 1e9:.1f} "
@@ -1588,9 +1883,11 @@ def prefill_phase(counters) -> int:
           + f" ({launches['flash_attention'] / 3:g} a prefill, expected "
           f"{n_attn}); logits {shape} in [{lo:.3f}, {hi:.3f}]", flush=True)
     require(launches["flash_attention"] == 3 * n_attn,
-            "7c: the prefill did not launch the flash kernel once a layer")
+            f"{label}: the prefill did not launch the flash kernel once an "
+            "attention layer")
     require(shape == (1, seq, cfg.padded_vocab) and math.isfinite(lo)
-            and math.isfinite(hi), "7c: prefill logits not finite")
+            and math.isfinite(hi), f"{label}: prefill logits not finite")
+    require(peak < PEAK_LIMIT, f"{label}: peak over the limit")
     return launches["flash_attention"]
 
 
@@ -1838,7 +2135,8 @@ def check_hgmma(lib: Path) -> None:
 
 def model_on_off(arch: str, **overrides) -> None:
     """The smoke model on the card with its kernels on and off (S = 256,
-    remat on): loss and every gradient agree.
+    remat on, an encoder arch's frames given): loss and every gradient
+    agree.
 
     In fp32 (the default) both sides do the same arithmetic up to the order
     of sums: loss within 1e-5 relative, gradients within 1e-4. In bf16 the
@@ -1859,7 +2157,8 @@ def model_on_off(arch: str, **overrides) -> None:
     toks = torch.randint(0, cfg.vocab, (2, 257), device="cuda",
                          generator=torch.Generator(device="cuda")
                          .manual_seed(2))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             **stub_tensors(cfg, 2, seed=3)}
     res = {}
     for flag in (True, False):
         c = cfg.replace(use_flash_kernel=flag)
@@ -1912,8 +2211,9 @@ def drive(label: str, argv, counters, keep: bool = False) -> dict:
         return n + recompute + backward * n
     # flash attention: forward only (the VJP is the plain reference), and
     # only where there is no window; rglru_scan: forward and adjoint
-    # (an ``moe`` block's attention is the same attention block)
-    per_step = {"attn": calls({"attn", "moe"}, 0),
+    # (an ``moe`` or ``encdec`` block's self-attention is the same
+    # attention block)
+    per_step = {"attn": calls({"attn", "moe", "encdec"}, 0),
                 "rglru": calls({"rglru"}, 1)}
     step_ms = [1e3 * s for s in result["step_seconds"]]
     steady = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
@@ -1924,7 +2224,7 @@ def drive(label: str, argv, counters, keep: bool = False) -> dict:
     n_params = result["param_count"]
     attn = 0
     for kind in kinds:
-        if kind in ("attn", "local", "moe"):
+        if kind in ("attn", "local", "moe", "encdec"):
             w = cfg.window if kind == "local" else 0
             attn += 3 * 4 * args.batch * cfg.n_heads * cfg.head_dim \
                 * attention_pairs(args.seq, args.seq, True, w)

@@ -71,11 +71,15 @@ def count_train_flops(cfg, batch: int, seq: int) -> int:
     counted on fake tensors (``FakeTensorMode``): shapes only, nothing
     allocated or computed, so a configuration too large for one card is
     counted as its step would run. The tensors are fake CPU tensors, so the
-    flash op takes its plain path, whose count is the kernel's."""
+    flash op takes its plain path, whose count is the kernel's. The batch
+    holds the arch's frame or patch stubs (``configs.shapes.stub_inputs``),
+    so Whisper's encoder is counted over its ``encoder_len`` frames."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    from repro_torch.configs.shapes import stub_inputs
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.layers import dtype_of
     from repro_torch.models.transformer import param_shapes
     from repro_torch.optim import make_optimizer
     from repro_torch.tree import tree_map
@@ -85,9 +89,11 @@ def count_train_flops(cfg, batch: int, seq: int) -> int:
             shape, requires_grad=True), param_shapes(cfg))
         opt = make_optimizer("adamw", lr=3e-4)
         toks = torch.zeros((batch, seq), dtype=torch.long)
+        inputs = {"tokens": toks, "labels": toks}
+        for name, (shape, dtype) in stub_inputs(cfg, batch).items():
+            inputs[name] = torch.zeros(shape, dtype=dtype_of(dtype))
         return count_step_flops(make_train_step(cfg, opt), params,
-                                opt.init(params), {"tokens": toks,
-                                                   "labels": toks})
+                                opt.init(params), inputs)
 
 
 @dataclass

@@ -7,7 +7,15 @@ is numpy's, seeded with (seed, step, shard): its bits differ from the JAX
 package's ``jax.random`` stream, its distribution is the same (Zipf-like
 unigram, every second token its predecessor + 1 mod V).
 
-Batches are int64 CPU tensors; the caller moves them to its device.
+An encoder arch's batch also holds ``frames`` and a cross-attention arch's
+``enc_embed`` (``configs.shapes.stub_inputs``): 0.1·N(0, 1) in
+``cfg.dtype``, drawn from the same generator after the tokens, so they too
+are a pure function of (seed, step, shard). Their bits differ from the JAX
+package's as the tokens' do: numpy draws fp32 normals and scales them
+before the cast, where JAX draws in ``cfg.dtype``.
+
+Tokens and labels are int64 CPU tensors, the stubs CPU tensors of
+``cfg.dtype``; the caller moves them to its device.
 """
 from __future__ import annotations
 
@@ -17,7 +25,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.shapes import stub_inputs
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of
 
 
 @dataclass
@@ -43,9 +53,6 @@ class SyntheticLM:
                  seed: int = 0, shard: int = 0, num_shards: int = 1):
         if global_batch % num_shards:
             raise ValueError("global_batch must divide num_shards")
-        if cfg.encoder_layers or cfg.cross_len:
-            raise NotImplementedError("frame / patch stubs are not ported "
-                                      "yet: ROADMAP 1.11")
         self.cfg = cfg
         self.global_batch = global_batch
         self.seq_len = seq_len
@@ -71,8 +78,13 @@ class SyntheticLM:
         rep = np.roll(stream, 1, axis=1)
         odd = (np.arange(s + 1)[None, :] % 2).astype(bool)
         stream = np.where(odd, (rep + 1) % self.cfg.vocab, stream)
-        return {"tokens": torch.from_numpy(stream[:, :-1].copy()),
-                "labels": torch.from_numpy(stream[:, 1:].copy())}
+        batch = {"tokens": torch.from_numpy(stream[:, :-1].copy()),
+                 "labels": torch.from_numpy(stream[:, 1:].copy())}
+        for name, (shape, dtype) in stub_inputs(self.cfg, b).items():
+            x = rng.standard_normal(shape, dtype=np.float32)
+            x *= np.float32(0.1)
+            batch[name] = torch.from_numpy(x).to(dtype_of(dtype))
+        return batch
 
     def next_batch(self) -> Dict[str, torch.Tensor]:
         st = self.state

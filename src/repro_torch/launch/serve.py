@@ -10,7 +10,11 @@ Same arguments and defaults as the JAX version, plus ``--full``,
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises when CUDA
 is asked for and missing. ``run(args)`` returns the per-token step times,
-the prompts, the generated ids, the weights and the config.
+the prompts, the generated ids, the weights, the config and the prompt
+batch's frame or patch stubs. A cross-attention arch's encoder states are
+computed once from that batch (Whisper's encoder over its frames,
+Llama-3.2-Vision's patch embeddings as they are) and fill the decode
+state's cross K/V before the first token.
 """
 from __future__ import annotations
 
@@ -23,7 +27,10 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import SyntheticLM
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.launch.train import resolve_device
-from repro_torch.models import init_decode_state, init_params
+from repro_torch.models import (init_decode_state, init_params,
+                                precompute_cross_kv)
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.transformer import _get_encoder_states
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -46,8 +53,10 @@ def run(args) -> dict:
     """Prefill and greedy decode from seeded random weights; returns
     ``prefill_seconds`` and ``decode_seconds`` (one host-clock time per
     token step, each ending in a device synchronise), ``prompts`` (B,
-    prompt_len) on the device, ``ids`` (B, gen) on the CPU, ``params`` and
-    ``config``."""
+    prompt_len) on the device, ``ids`` (B, gen) on the CPU, ``params``,
+    ``config`` and ``stubs``: the prompt batch's ``frames`` or
+    ``enc_embed`` on the device (an empty dict for a decoder-only arch),
+    so that ``forward`` can run again on what was served."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers:
@@ -55,9 +64,18 @@ def run(args) -> dict:
     params = init_params(
         torch.Generator(device=device).manual_seed(args.seed), cfg)
     data = SyntheticLM(cfg, args.batch, args.prompt_len, seed=args.seed)
-    prompts = data.next_batch()["tokens"].to(device)
+    batch = data.next_batch()
+    prompts = batch["tokens"].to(device)
+    stubs = {k: v.to(device) for k, v in batch.items()
+             if k not in ("tokens", "labels")}
     state = init_decode_state(cfg, args.batch, args.prompt_len + args.gen,
                               device)
+    if cfg.cross_len:
+        with torch.no_grad():
+            enc = _get_encoder_states(params, stubs, cfg)
+            state = precompute_cross_kv(params, state,
+                                        enc.to(dtype_of(cfg.dtype)), cfg)
+        del enc
     step = make_serve_step(cfg)
 
     def timed(token):
@@ -92,7 +110,7 @@ def run(args) -> dict:
     print("first generated ids:", ids[0, :12].tolist())
     return {"prefill_seconds": prefill_seconds,
             "decode_seconds": decode_seconds, "prompts": prompts, "ids": ids,
-            "params": params, "config": cfg}
+            "params": params, "config": cfg, "stubs": stubs}
 
 
 def main() -> None:

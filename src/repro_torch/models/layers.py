@@ -1,7 +1,8 @@
-"""Shared neural-net primitives for the model zoo, dense subset (PyTorch).
+"""Shared neural-net primitives for the model zoo (PyTorch).
 
-The port of ``repro.models.layers``, the parts the dense blocks and their
-decode step (``init_kv_cache``, ``decode_attention``) use.
+The port of ``repro.models.layers``: norms, RoPE, MLPs, self- and
+cross-attention, and the decode step's KV cache (``init_kv_cache``,
+``decode_attention``).
 Parameters are nested dicts of tensors whose keys and einsum layouts match
 the JAX pytree exactly (``wq`` is ``(d, H, hd)``, ``wo`` is ``(H, hd, d)``),
 so JAX weights carry across with ``repro_torch.convert.params_from_numpy``.
@@ -137,16 +138,21 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA / MQA, causal, sliding-window)
+# Attention (GQA / MQA, causal, sliding-window, cross)
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   cross: bool = False) -> Params:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
-    return {"wq": dense_init(gen, (d, h, hd), in_axis=0),
-            "wk": dense_init(gen, (d, kv, hd), in_axis=0),
-            "wv": dense_init(gen, (d, kv, hd), in_axis=0),
-            "wo": dense_init(gen, (h, hd, d), in_axis=0)}
+    p = {"wq": dense_init(gen, (d, h, hd), in_axis=0),
+         "wk": dense_init(gen, (d, kv, hd), in_axis=0),
+         "wv": dense_init(gen, (d, kv, hd), in_axis=0),
+         "wo": dense_init(gen, (h, hd, d), in_axis=0)}
+    if cross:
+        # tanh-gated residual (Llama-3.2-Vision cross-attention layers)
+        p["gate"] = torch.zeros((), device=gen.device)
+    return p
 
 
 def _qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor):
@@ -261,6 +267,24 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 if causal else None)
         out = mha_logits_to_out(q, k, v, mask, cfg)
     return torch.einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
+
+
+def gate_output(p: Params, y: torch.Tensor) -> torch.Tensor:
+    """``tanh(gate) * y`` where ``p`` has a gate, the tanh rounded to y's
+    dtype first as the reference rounds it; else ``y``."""
+    if "gate" in p:
+        return torch.tanh(p["gate"]).to(y.dtype) * y
+    return y
+
+
+def cross_attention_block(p: Params, x: torch.Tensor, enc: torch.Tensor,
+                          cfg: ModelConfig, gated: bool = True) -> torch.Tensor:
+    """Cross-attention: queries from x (B,S,d), keys/values from enc (B,T,d);
+    no mask, no RoPE, never the flash kernel (as in the reference)."""
+    q, k, v = _qkv(p, x, enc)
+    out = mha_logits_to_out(q, k, v, None, cfg)
+    y = torch.einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
+    return gate_output(p, y) if gated else y
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The unified LM: init / forward / loss / decode for the ``attn``,
-``local``, ``moe``, ``rglru``, ``slstm`` and ``mlstm`` blocks (PyTorch).
+"""The unified LM: init / forward / loss / decode for every block kind of
+the zoo (PyTorch).
 
 The port of ``repro.models.transformer``. The layer stack is a loop over
 repeating pattern groups whose parameters are stacked on axis 0 under
@@ -7,10 +7,13 @@ repeating pattern groups whose parameters are stacked on axis 0 under
 With ``cfg.remat`` each group runs under ``torch.utils.checkpoint``, the
 counterpart of ``jax.checkpoint`` with ``nothing_saveable``.
 
-The ``attn``, ``local`` (sliding-window attention), ``moe`` (attention
-and a Mixture-of-Experts FFN, ``models/moe.py``), ``rglru``, ``slstm`` and
-``mlstm`` block kinds are ported so far; every other kind raises
-``NotImplementedError`` naming its ROADMAP item.
+The block kinds: ``attn``, ``local`` (sliding-window attention), ``moe``
+(attention and a Mixture-of-Experts FFN, ``models/moe.py``), ``rglru``,
+``slstm``, ``mlstm``, ``encdec`` (Whisper's decoder block: self-attention,
+ungated cross-attention to the encoder, MLP) and ``xattn``
+(Llama-3.2-Vision's tanh-gated cross-attention to patch embeddings, MLP).
+Whisper's bidirectional encoder runs on the batch's stub ``frames``; a
+cross-attention arch without an encoder reads the batch's ``enc_embed``.
 
 Public API:
   init_params(gen, cfg)            parameter dict on ``gen.device``
@@ -18,12 +21,12 @@ Public API:
   loss_fn(params, batch, cfg)      (loss, metrics)
   init_decode_state(cfg, B, max_len, device)   KV caches, recurrent states
   decode_state_shapes(cfg, B, max_len)         the same tree on ``meta``
+  precompute_cross_kv(params, state, enc, cfg) fills the cross K/V slots
   serve_step(params, state, token, cfg)        (logits, state), one token
 
-``serve_step`` updates the decode state in place and returns it, as the
-reference's jitted step donates it: the caller passes each state once.
-``precompute_cross_kv`` fills cross-attention slots, which only the
-unported ``xattn``/``encdec`` kinds have; it waits for ROADMAP 1.11.
+``serve_step`` and ``precompute_cross_kv`` update the decode state in
+place and return it, as the reference's jitted step donates it: the caller
+passes each state once.
 """
 from __future__ import annotations
 
@@ -38,29 +41,22 @@ from repro_torch.tree import leaves, tree_map
 from . import recurrent as rec
 from .config import ModelConfig
 from .layers import (Params, _weak, apply_mlp, apply_norm, attention_block,
-                     decode_attention, dense_init, dtype_of, embed_init,
-                     init_attention, init_kv_cache, init_mlp, init_norm)
+                     cross_attention_block, decode_attention, dense_init,
+                     dtype_of, embed_init, gate_output, init_attention,
+                     init_kv_cache, init_mlp, init_norm, mha_logits_to_out)
 from .moe import apply_moe, init_moe
 
 Batch = Dict[str, torch.Tensor]
 
-# Block kinds still to port, with the ROADMAP.md module item that ports them.
-_UNPORTED = {
-    "xattn": "ROADMAP 1.11 (llama-3.2-vision-90b)",
-    "encdec": "ROADMAP 1.11 (whisper-small)",
-}
-
+# Block kinds with a self-attention sublayer (and a KV cache in decode), and
+# those with a cross-attention sublayer (and cross K/V slots in decode).
+_SELF_ATTN = ("attn", "local", "moe", "encdec")
+_CROSS_ATTN = ("encdec", "xattn")
 
 # The recurrent block kinds: each keeps its parameters under its own name
 # and has ``init_<kind>``, ``apply_<kind>``, ``init_<kind>_state`` and
 # ``step_<kind>`` in ``recurrent``.
 _RECURRENT = ("rglru", "slstm", "mlstm")
-
-
-def _check_kind(kind: str) -> None:
-    if kind in _UNPORTED:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: {_UNPORTED[kind]}")
 
 
 # ---------------------------------------------------------------------------
@@ -69,10 +65,14 @@ def _check_kind(kind: str) -> None:
 
 
 def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
-    _check_kind(kind)
     p: Params = {"norm1": init_norm(cfg, gen.device)}
-    if kind in ("attn", "local", "moe"):
+    if kind in _SELF_ATTN:
         p["attn"] = init_attention(gen, cfg)
+    if kind == "encdec":
+        p["norm_x"] = init_norm(cfg, gen.device)
+        p["xattn"] = init_attention(gen, cfg, cross=False)
+    if kind == "xattn":
+        p["xattn"] = init_attention(gen, cfg, cross=True)
     if kind in _RECURRENT:
         p[kind] = getattr(rec, f"init_{kind}")(gen, cfg)
     if kind == "moe":
@@ -80,7 +80,7 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
         p["moe"] = init_moe(gen, cfg)
         if cfg.dense_residual_ff:
             p["dense_ff"] = init_mlp(gen, cfg, d_ff=cfg.dense_residual_ff)
-    elif kind in ("attn", "local", "rglru") and cfg.d_ff:
+    elif kind in ("attn", "local", "xattn", "encdec", "rglru") and cfg.d_ff:
         p["norm2"] = init_norm(cfg, gen.device)
         p["mlp"] = init_mlp(gen, cfg)
     return p
@@ -92,14 +92,22 @@ def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
 
 
 def _apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-    _check_kind(kind)
+                 positions: torch.Tensor,
+                 enc: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict]:
     aux = _zero_aux(x.device)
-    if kind in ("attn", "local", "moe"):
+    if kind in _SELF_ATTN:
         w = cfg.window if kind == "local" else 0
         x = x + attention_block(p["attn"], apply_norm(p["norm1"], x, cfg),
                                 cfg, positions, window=w,
                                 use_rope=(cfg.rope_theta > 0))
+    if kind == "encdec":
+        x = x + cross_attention_block(
+            p["xattn"], apply_norm(p["norm_x"], x, cfg), enc, cfg,
+            gated=False)
+    if kind == "xattn":
+        x = x + cross_attention_block(
+            p["xattn"], apply_norm(p["norm1"], x, cfg), enc, cfg, gated=True)
     if kind in _RECURRENT:
         x = x + getattr(rec, f"apply_{kind}")(
             p[kind], apply_norm(p["norm1"], x, cfg), cfg)
@@ -124,7 +132,7 @@ def _apply_moe_ffn(p: Params, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Full-model init
+# Stacked layers
 # ---------------------------------------------------------------------------
 
 
@@ -134,6 +142,63 @@ def _unstack(tree, n: int):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
     return list(torch.unbind(tree, 0))
+
+
+def _stacked(n: int, draw) -> Params:
+    """``n`` draws of ``draw()`` stacked on a new axis 0. Each draw is
+    copied into its row as it is drawn, so the weights are never held twice;
+    a single draw is its own row (one full-width arctic-480b layer is
+    56.3 GB)."""
+    first = draw()
+    if n == 1:
+        return tree_map(lambda x: x.unsqueeze(0), first)
+    out = tree_map(lambda x: x.new_empty((n, *x.shape)), first)
+    for g in range(n):
+        tree_map(lambda dst, src: dst[g].copy_(src), out,
+                 first if g == 0 else draw())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Whisper-style encoder (bidirectional; stub conv frontend upstream)
+# ---------------------------------------------------------------------------
+
+
+def _init_encoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    dev = gen.device
+
+    def layer():
+        return {"norm1": init_norm(cfg, dev),
+                "attn": init_attention(gen, cfg),
+                "norm2": init_norm(cfg, dev),
+                "mlp": init_mlp(gen, cfg)}
+    return {"layers": _stacked(cfg.encoder_layers, layer),
+            "final_norm": init_norm(cfg, dev),
+            "pos": embed_init(gen, (cfg.encoder_len, cfg.d_model)) * 0.02}
+
+
+def _run_encoder(p: Params, frames: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """frames: (B, T, d) stub conv-frontend output; bidirectional attention
+    (never the flash kernel), each layer under its own checkpoint with
+    ``cfg.remat``, as the reference's scan body."""
+    x = frames + p["pos"][None, : frames.shape[1]].to(frames.dtype)
+    positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
+
+    def body(x, lp):
+        x = x + attention_block(lp["attn"], apply_norm(lp["norm1"], x, cfg),
+                                cfg, positions, use_rope=False, causal=False)
+        return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+
+    for lp in _unstack(p["layers"], cfg.encoder_layers):
+        x = (checkpoint(body, x, lp, use_reentrant=False) if cfg.remat
+             else body(x, lp))
+    return apply_norm(p["final_norm"], x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Full-model init
+# ---------------------------------------------------------------------------
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -148,23 +213,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
                      "final_norm": init_norm(cfg, dev)}
         if not cfg.tie_embeddings:
             p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab))
+        if cfg.encoder_layers:
+            p["encoder"] = _init_encoder(gen, cfg)
+            # learned decoder positions sized for the largest assigned shape
+            p["pos_embed"] = embed_init(gen, (32_768, cfg.d_model)) * 0.02
         if cfg.n_groups > 0:
-            def group():
-                return {f"s{si}_{kind}": _init_block(gen, kind, cfg)
-                        for si, kind in enumerate(cfg.pattern)}
-            # each group is copied into its row as it is drawn, so the
-            # weights are never held twice; one group is its own row (one
-            # full-width arctic-480b layer is 56.3 GB)
-            first = group()
-            if cfg.n_groups == 1:
-                p["scan"] = tree_map(lambda x: x.unsqueeze(0), first)
-            else:
-                p["scan"] = tree_map(
-                    lambda x: x.new_empty((cfg.n_groups, *x.shape)), first)
-                for g in range(cfg.n_groups):
-                    tree_map(lambda dst, src: dst[g].copy_(src), p["scan"],
-                             first if g == 0 else group())
-            del first
+            p["scan"] = _stacked(cfg.n_groups, lambda: {
+                f"s{si}_{kind}": _init_block(gen, kind, cfg)
+                for si, kind in enumerate(cfg.pattern)})
         if cfg.n_tail:
             p["tail"] = {f"t{si}_{kind}": _init_block(gen, kind, cfg)
                          for si, kind in enumerate(cfg.tail_pattern)}
@@ -196,7 +252,7 @@ def _block_shapes(kind: str, cfg: ModelConfig) -> Dict:
             "wo": (h, hd, d)}
     nh = cfg.n_heads
     p: Dict = {"norm1": norm}
-    if kind in ("attn", "local", "moe", "encdec"):
+    if kind in _SELF_ATTN:
         p["attn"] = attn
     if kind == "encdec":
         p["norm_x"] = norm
@@ -286,6 +342,15 @@ def active_param_count(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _get_encoder_states(params: Params, batch: Batch,
+                        cfg: ModelConfig) -> Optional[torch.Tensor]:
+    if cfg.encoder_layers:
+        return _run_encoder(params["encoder"], batch["frames"], cfg)
+    if cfg.cross_len and "enc_embed" in batch:
+        return batch["enc_embed"]
+    return None
+
+
 def forward(params: Params, batch: Batch,
             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     tokens = batch["tokens"]
@@ -293,27 +358,35 @@ def forward(params: Params, batch: Batch,
     dt = dtype_of(cfg.dtype)
     x = params["embed"][tokens].to(dt)
     x = x * _weak(math.sqrt(cfg.d_model), dt)   # scaled in the model dtype
+    if cfg.encoder_layers:
+        x = x + params["pos_embed"][None, :s].to(dt)
     positions = torch.arange(s, device=tokens.device)[None, :]
+    enc = _get_encoder_states(params, batch, cfg)
+    if enc is not None:
+        enc = enc.to(dt)
 
     aux_total = _zero_aux(x.device)
 
-    def group_body(x, gp):
+    # ``enc`` is an input of each checkpointed group, so its gradient
+    # reaches the encoder under remat
+    def group_body(x, gp, enc):
         aux = _zero_aux(x.device)
         for si, kind in enumerate(cfg.pattern):
-            x, a = _apply_block(kind, gp[f"s{si}_{kind}"], x, cfg, positions)
+            x, a = _apply_block(kind, gp[f"s{si}_{kind}"], x, cfg, positions,
+                                enc)
             aux = {k: aux[k] + a[k] for k in aux}
         return x, aux
 
     if cfg.n_groups > 0:
         for gp in _unstack(params["scan"], cfg.n_groups):
             if cfg.remat:
-                x, a = checkpoint(group_body, x, gp, use_reentrant=False)
+                x, a = checkpoint(group_body, x, gp, enc, use_reentrant=False)
             else:
-                x, a = group_body(x, gp)
+                x, a = group_body(x, gp, enc)
             aux_total = {k: aux_total[k] + a[k] for k in aux_total}
     for si, kind in enumerate(cfg.tail_pattern):
         x, a = _apply_block(kind, params["tail"][f"t{si}_{kind}"], x, cfg,
-                            positions)
+                            positions, enc)
         aux_total = {k: aux_total[k] + a[k] for k in aux_total}
 
     x = apply_norm(params["final_norm"], x, cfg)
@@ -359,12 +432,20 @@ def loss_fn(params: Params, batch: Batch,
 
 def _slot_state(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                 device) -> Params:
-    _check_kind(kind)
     if kind in _RECURRENT:
         return getattr(rec, f"init_{kind}_state")(cfg, batch, device)
-    window = cfg.window if kind == "local" else 0
-    return {name: c[0] for name, c in init_kv_cache(
-        cfg, batch, max_len, 1, window=window, device=device).items()}
+    st: Params = {}
+    if kind in _SELF_ATTN:
+        window = cfg.window if kind == "local" else 0
+        st.update({name: c[0] for name, c in init_kv_cache(
+            cfg, batch, max_len, 1, window=window, device=device).items()})
+    if kind in _CROSS_ATTN:
+        shape = (batch, cfg.cross_len or cfg.encoder_len, cfg.n_kv,
+                 cfg.head_dim)
+        for name in ("xk", "xv"):
+            st[name] = torch.zeros(shape, dtype=dtype_of(cfg.dtype),
+                                   device=device)
+    return st
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -397,15 +478,47 @@ def decode_state_shapes(cfg: ModelConfig, batch: int, max_len: int):
     return init_decode_state(cfg, batch, max_len, "meta")
 
 
+@torch.no_grad()
+def precompute_cross_kv(params: Params, state: Params, enc: torch.Tensor,
+                        cfg: ModelConfig) -> Params:
+    """Fills the xk/xv slots of a decode state from encoder states ``enc``
+    (B, T, d) and returns the state. Each product is computed in enc's
+    dtype and copied into the state's own tensors, so no slot aliases
+    ``enc``."""
+    def fill(ap: Params, st: Params) -> None:
+        for name, w in (("xk", ap["wk"]), ("xv", ap["wv"])):
+            st[name].copy_(torch.einsum("btd,dhk->bthk", enc,
+                                        w.to(enc.dtype)))
+
+    for key, st in state.get("scan", {}).items():
+        if "xk" in st:
+            for gp, gst in zip(_unstack(params["scan"][key], cfg.n_groups),
+                               _unstack(st, cfg.n_groups)):
+                fill(gp["xattn"], gst)
+    for key, st in state.get("tail", {}).items():
+        if "xk" in st:
+            fill(params["tail"][key]["xattn"], st)
+    return state
+
+
 def _step_block(kind: str, p: Params, x: torch.Tensor, st: Params,
                 pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """One block for one token; writes the slot's new state into ``st``."""
-    if kind in ("attn", "local", "moe"):
+    if kind in _SELF_ATTN:
         w = cfg.window if kind == "local" else 0
         h = apply_norm(p["norm1"], x, cfg)
         y, _, _ = decode_attention(p["attn"], h, st["k"], st["v"], pos, cfg,
                                    window=w, use_rope=(cfg.rope_theta > 0))
         x = x + y
+    if kind in _CROSS_ATTN:
+        # attention over the cached encoder K/V, no mask
+        ap = p["xattn"]
+        h = apply_norm(p["norm_x" if kind == "encdec" else "norm1"], x, cfg)
+        q = torch.einsum("...sd,dhk->...shk", h, ap["wq"].to(x.dtype))
+        o = mha_logits_to_out(q, st["xk"].to(x.dtype), st["xv"].to(x.dtype),
+                              None, cfg)
+        x = x + gate_output(ap, torch.einsum("...shk,hkd->...sd", o,
+                                             ap["wo"].to(x.dtype)))
     if kind in _RECURRENT:
         y, s2 = getattr(rec, f"step_{kind}")(
             p[kind], apply_norm(p["norm1"], x, cfg), st, cfg)
@@ -426,12 +539,16 @@ def serve_step(params: Params, state: Params, token: torch.Tensor,
 
     The caches and recurrent states are updated in place; ``pos`` is a new
     0-d tensor. Nothing is read back to the host."""
-    for kind in (*cfg.pattern, *cfg.tail_pattern):
-        _check_kind(kind)
     dt = dtype_of(cfg.dtype)
     pos = state["pos"]
     x = params["embed"][token[:, None]].to(dt)
     x = x * _weak(math.sqrt(cfg.d_model), dt)
+    if cfg.encoder_layers:
+        # the learned position's row, clamped into the table as the
+        # reference's dynamic_slice clamps its start
+        table = params["pos_embed"]
+        row = pos.clamp(max=table.shape[0] - 1).long().view(1)
+        x = x + table.index_select(0, row)[None].to(dt)
 
     if cfg.n_groups > 0:
         slots = {key: _unstack(st, cfg.n_groups)

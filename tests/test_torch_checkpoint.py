@@ -254,7 +254,7 @@ def run_args(*argv):
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b",
-                                  "xlstm-350m"])
+                                  "xlstm-350m", "whisper-small"])
 def test_restart_equivalence(arch, tmp_path):
     """Train N steps straight == train, crash, resume (same losses)."""
     base = ["--arch", arch, "--steps", "12", "--ckpt-every", "4"]

@@ -89,7 +89,8 @@ def test_pad_vocab_masked():
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "granite-8b",
                                   "recurrentgemma-2b", "xlstm-350m",
-                                  "deepseek-moe-16b", "arctic-480b"])
+                                  "deepseek-moe-16b", "arctic-480b",
+                                  "whisper-small", "llama-3.2-vision-90b"])
 def test_init_layout_matches_jax(arch):
     """Same keys, shapes and dtypes as the JAX pytree; leaves need grad."""
     cfg = get_config(arch, smoke=True)
@@ -111,10 +112,3 @@ def test_params_round_trip():
     back = params_from_numpy(params_to_numpy(params), "cpu")
     tree_map(lambda a, b: torch.testing.assert_close(a, b, atol=0, rtol=0),
              params, back)
-
-
-@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-90b"])
-def test_unported_block_kinds_raise(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.init_params(torch.Generator().manual_seed(0), cfg)

@@ -289,8 +289,10 @@ def carried_jax_run(monkeypatch, arch, seed=0):
             self.inner = JaxSyntheticLM(jc, batch, seq, seed=seed)
 
         def next_batch(self):
-            return {k: torch.from_numpy(np.asarray(v).astype(np.int64))
-                    for k, v in self.inner.next_batch().items()}
+            # tokens as int64, a frame or patch stub as fp32
+            return {k: torch.from_numpy(np.asarray(v).astype(
+                np.int64 if k in ("tokens", "labels") else np.float32))
+                for k, v in self.inner.next_batch().items()}
 
         def state_dict(self):
             return self.inner.state_dict()

@@ -1,9 +1,13 @@
 """The port's decode path against the JAX package: ``decode_attention`` (full
 cache and a wrapping ring), ``step_rglru`` and the conv state,
-``serve_step`` step by step for the eight ported archs, decode with
-teacher forcing against ``forward``, the decode state's layout, the
-prefill and grad step factories and the CPU serve loop. Inputs come from
-numpy; JAX-initialised weights are carried across."""
+``serve_step`` step by step for the ten archs, decode with teacher forcing
+against ``forward``, the decode state's layout, the prefill and grad step
+factories and the CPU serve loop. Inputs come from numpy; JAX-initialised
+weights are carried across. The cross-attention archs' decode states get
+their cross K/V from a numpy stub (whisper-small's frames through its
+encoder, llama-3.2-vision-90b's patch embeddings), and every ``xattn``
+gate is set to 0.5 in both packages: at 0 the cross-attention adds
+nothing."""
 import argparse
 import dataclasses
 
@@ -33,11 +37,51 @@ from repro_torch.tree import leaves, tree_map
 TOL = 1e-5
 KEY = jax.random.PRNGKey(7)
 ARCHS = ["gemma-7b", "granite-8b", "phi4-mini-3.8b", "starcoder2-7b",
-         "recurrentgemma-2b", "xlstm-350m", "deepseek-moe-16b", "arctic-480b"]
+         "recurrentgemma-2b", "xlstm-350m", "deepseek-moe-16b", "arctic-480b",
+         "whisper-small", "llama-3.2-vision-90b"]
+GATE = 0.5
+
+
+def with_gates(tree, value=GATE):
+    """A tree with every ``gate`` leaf (an ``xattn`` layer's) at ``value``."""
+    if isinstance(tree, dict):
+        return {k: (np.full_like(np.asarray(v), value) if k == "gate"
+                    else with_gates(v, value)) for k, v in tree.items()}
+    return tree
 
 
 def carried(jp):
     return params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+
+
+def stubs(cfg, b, seed=9):
+    """The arch's frame or patch stub (0.1·N(0, 1), fp32) as numpy, keyed as
+    in a batch; empty for a decoder-only arch."""
+    if cfg.encoder_layers:
+        return {"frames": normal((b, cfg.encoder_len, cfg.d_model), seed)
+                * np.float32(0.1)}
+    if cfg.cross_len:
+        return {"enc_embed": normal((b, cfg.cross_len, cfg.d_model), seed)
+                * np.float32(0.1)}
+    return {}
+
+
+def jax_cross_state(jc, jp, stub, state):
+    if not jc.cross_len:
+        return state
+    enc = jt._get_encoder_states(
+        jp, {k: jnp.asarray(v) for k, v in stub.items()}, jc)
+    return jt.precompute_cross_kv(jp, state, enc.astype(jc.dtype), jc)
+
+
+def port_cross_state(tc, tp, stub, state):
+    if not tc.cross_len:
+        return state
+    with torch.no_grad():
+        enc = tt._get_encoder_states(
+            tp, {k: torch.from_numpy(v) for k, v in stub.items()}, tc)
+    return tt.precompute_cross_kv(tp, state, enc.to(tl.dtype_of(tc.dtype)),
+                                  tc)
 
 
 def normal(shape, seed=0):
@@ -61,7 +105,8 @@ def setup(arch, capacity_factor=None, **kw):
     if capacity_factor is not None:
         jc, tc = (c.replace(moe=dataclasses.replace(
             c.moe, capacity_factor=capacity_factor)) for c in (jc, tc))
-    jp = jt.init_params(KEY, jc)
+    jp = jax.tree_util.tree_map(jnp.asarray, with_gates(
+        jax.tree_util.tree_map(np.asarray, jt.init_params(KEY, jc))))
     return jc, tc, jp, carried(jp)
 
 
@@ -153,8 +198,10 @@ def test_step_rglru_steps():
 def serve_both(arch, steps, **kw):
     jc, tc, jp, tp = setup(arch, **kw)
     toks = tokens(jc.vocab, 2, steps)
-    jstate = jt.init_decode_state(jc, 2, steps)
-    tstate = tt.init_decode_state(tc, 2, steps, device="cpu")
+    stub = stubs(jc, 2)
+    jstate = jax_cross_state(jc, jp, stub, jt.init_decode_state(jc, 2, steps))
+    tstate = port_cross_state(tc, tp, stub, tt.init_decode_state(
+        tc, 2, steps, device="cpu"))
     jstep = jax.jit(lambda p, s, t: jt.serve_step(p, s, t, jc))
     for i in range(steps):
         jl_, jstate = jstep(jp, jstate, jnp.asarray(toks[:, i], jnp.int32))
@@ -272,17 +319,23 @@ def test_decode_teacher_forced_matches_forward(arch):
     the real vocab. An MoE arch runs at a capacity factor of E/k, where
     nothing drops (C = G in the forward, C = B in decode): at its own
     factor the forward drops assignments that decode keeps, in the
-    reference too (``test_torch_moe.py``, ROADMAP §3)."""
+    reference too (``test_torch_moe.py``, ROADMAP §3). A cross-attention
+    arch's forward and decode read one stub, its gates at 0.5."""
     tc = get_config(arch, smoke=True)
     if tc.moe is not None:
         tc = tc.replace(moe=dataclasses.replace(
             tc.moe, capacity_factor=tc.moe.num_experts / tc.moe.top_k))
-    tp = tt.init_params(torch.Generator().manual_seed(0), tc)
+    tp = params_from_numpy(with_gates(tree_map(
+        lambda t: t.detach().numpy(),
+        tt.init_params(torch.Generator().manual_seed(0), tc))), "cpu")
     b, s = 2, 8
     toks = torch.from_numpy(tokens(tc.vocab, b, s, seed=3))
+    stub = stubs(tc, b)
     with torch.no_grad():
-        full, _ = tt.forward(tp, {"tokens": toks}, tc)
-    state = tt.init_decode_state(tc, b, s, device="cpu")
+        full, _ = tt.forward(tp, {"tokens": toks, **{
+            k: torch.from_numpy(v) for k, v in stub.items()}}, tc)
+    state = port_cross_state(tc, tp, stub,
+                             tt.init_decode_state(tc, b, s, device="cpu"))
     for i in range(s):
         li, state = tt.serve_step(tp, state, toks[:, i], tc)
         logits_close(li, full[:, i].numpy(), tc.vocab, 2e-2)
@@ -319,17 +372,6 @@ def test_decode_state_shapes_match_jax(arch):
         assert str(t.dtype).split(".")[1] == str(leaf.dtype), path
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("llama-3.2-vision-90b", "1.11"), ("whisper-small", "1.11")])
-def test_unported_kinds_raise(arch, item):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tt.init_decode_state(cfg, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tt.serve_step({}, {"pos": torch.zeros((), dtype=torch.int32)},
-                      torch.zeros(2, dtype=torch.long), cfg)
-
-
 # -- step factories -----------------------------------------------------------
 
 
@@ -355,16 +397,20 @@ def test_serve_step_factory_is_serve_step():
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b",
                                   "xlstm-350m", "deepseek-moe-16b",
-                                  "arctic-480b"])
+                                  "arctic-480b", "whisper-small",
+                                  "llama-3.2-vision-90b"])
 def test_grad_step_matches_jax(arch):
     jc, tc, jp, tp = setup(arch)
     toks = tokens(jc.vocab, 2, 33, seed=1)
+    stub = stubs(jc, 2)
     jgrads, jm = jax.jit(jax_grad_step(jc))(jp, {
         "tokens": jnp.asarray(toks[:, :-1], jnp.int32),
-        "labels": jnp.asarray(toks[:, 1:], jnp.int32)})
+        "labels": jnp.asarray(toks[:, 1:], jnp.int32),
+        **{k: jnp.asarray(v) for k, v in stub.items()}})
     grads, metrics = make_grad_step(tc)(tp, {
         "tokens": torch.from_numpy(toks[:, :-1]),
-        "labels": torch.from_numpy(toks[:, 1:])})
+        "labels": torch.from_numpy(toks[:, 1:]),
+        **{k: torch.from_numpy(v) for k, v in stub.items()}})
     assert set(metrics) == set(jm)
     np.testing.assert_allclose(metrics["loss"].item(), float(jm["loss"]),
                                rtol=1e-5)
@@ -383,29 +429,38 @@ def args(**kw):
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b",
-                                  "xlstm-350m"])
+                                  "xlstm-350m", "whisper-small",
+                                  "llama-3.2-vision-90b"])
 def test_serve_run_matches_jax_serve(arch, monkeypatch, capsys):
     """The JAX serve loop's greedy ids, from its own seeded weights and
-    prompts carried into the port's serve loop (the two packages' random
-    streams differ)."""
+    prompt batch (with its frames or patch embeddings) carried into the
+    port's serve loop (the two packages' random streams differ); the JAX
+    loop's gates set to 0.5 as it initialises them."""
+    real_init = jax_serve.init_params
+    monkeypatch.setattr(jax_serve, "init_params", lambda key, cfg: with_gates(
+        real_init(key, cfg)))
     monkeypatch.setattr("sys.argv", ["serve", "--arch", arch, "--batch", "2",
                                      "--prompt-len", "8", "--gen", "8"])
     jax_serve.main()
     line = capsys.readouterr().out.strip().splitlines()[-1]
     want = eval(line.split(":", 1)[1])
     jc = jax_config(arch, smoke=True)
-    jp = jt.init_params(jax.random.PRNGKey(0), jc)
-    prompts = np.asarray(JaxSyntheticLM(jc, 2, 8, seed=0).next_batch()[
-        "tokens"])
+    jp = with_gates(jax.tree_util.tree_map(
+        np.asarray, jt.init_params(jax.random.PRNGKey(0), jc)))
+    batch = {k: np.asarray(v) for k, v in JaxSyntheticLM(
+        jc, 2, 8, seed=0).next_batch().items()}
 
     class Prompts:
         def __init__(self, *a, **k):
             pass
 
         def next_batch(self):
-            return {"tokens": torch.tensor(prompts, dtype=torch.long)}
+            return {k: torch.from_numpy(v.astype(
+                np.int64 if k in ("tokens", "labels") else np.float32))
+                for k, v in batch.items()}
 
-    monkeypatch.setattr(serve, "init_params", lambda gen, cfg: carried(jp))
+    monkeypatch.setattr(serve, "init_params",
+                        lambda gen, cfg: params_from_numpy(jp, "cpu"))
     monkeypatch.setattr(serve, "SyntheticLM", Prompts)
     res = serve.run(args(arch=arch))
     assert res["ids"].shape == (2, 8)
@@ -416,17 +471,22 @@ def test_serve_run_matches_jax_serve(arch, monkeypatch, capsys):
 @pytest.mark.parametrize("arch,layers", [("gemma-7b", 1),
                                          ("recurrentgemma-2b", 4),
                                          ("xlstm-350m", 2),
-                                         ("arctic-480b", 1)])
+                                         ("arctic-480b", 1),
+                                         ("whisper-small", 1),
+                                         ("llama-3.2-vision-90b", 5)])
 def test_serve_run_layers_and_what_it_served(arch, layers):
-    """``--layers`` cuts the depth; ``run`` returns the prompts and weights
-    it served, and feeding the prompt and the generated ids back through
-    ``serve_step`` reproduces every greedy id."""
+    """``--layers`` cuts the depth; ``run`` returns the prompts, the stubs
+    and the weights it served, and feeding the prompt and the generated ids
+    back through ``serve_step`` (the cross K/V filled from those stubs)
+    reproduces every greedy id."""
     res = serve.run(args(arch=arch, layers=layers))
     cfg = res["config"]
     assert cfg.n_layers == layers
     assert res["prompts"].shape == (2, 8)
     toks = torch.cat([res["prompts"], res["ids"]], dim=1)
-    state = tt.init_decode_state(cfg, 2, 16, device="cpu")
+    state = port_cross_state(
+        cfg, res["params"], {k: v.numpy() for k, v in res["stubs"].items()},
+        tt.init_decode_state(cfg, 2, 16, device="cpu"))
     greedy = []
     for i in range(16):
         logits, state = tt.serve_step(res["params"], state, toks[:, i], cfg)
