@@ -179,7 +179,31 @@ for each source, all started together), then
        e. prefills that group at ``prefill_32k`` for one card (B = 1,
           S = 32768) through ``make_prefill_step``, the flash kernel on: one
           warm-up, 3 timed runs of 4 flash launches each, finite logits, the
-          peak, and a profile of one more prefill.
+          peak, and a profile of one more prefill;
+ 12. the sharding layer (``parallel/sharding.py``, ``launch/mesh.py``) on
+     an NCCL process group of world size 1 (its store in ``build/phase12/``,
+     removed at the end; no fallback to gloo or the CPU) and
+     ``make_debug_mesh((1, 1))`` on the card:
+       a. phase 3's gemma-7b path (4 of 28 layers at full width, bf16, fp32
+          params, remat, AdamW, B = 2, S = 2048, the same seed and batches)
+          with params, optimizer state and batches as DTensors
+          (``params_shardings``, ``batch_shardings``), 5 steps through
+          ``make_train_step(cfg, opt, mesh)``, the launch counts set to 0
+          just before and read just after: every loss within 1e-5 relative
+          of phase 3's (bit-equal or not, printed), 40 flash launches
+          through the kernel's custom op, every param and optimizer-state
+          leaf still a DTensor with its rule's placements, peak under
+          75 GB; ms a step, tokens/s against phase 3's, the idle share of
+          one more profiled step, and the regions that ran under
+          ``local_map`` in the 5 steps, with their runs;
+       b. that state saved, evicted from the page cache, and restored onto
+          the mesh (``restore(..., mesh=mesh)``) from ``meta`` targets:
+          every leaf ``torch.equal`` to the saved one, with the
+          restore-time rules' placements; save and restore GB/s beside
+          8a's;
+       c. the scan kernel forward and reverse on DTensor inputs at its path
+          shape (2, 2048, 2560) fp32, batch over data and width over model,
+          bit-equal to the plain tensors' call.
 
 Each result is printed as it comes; the line before the card's name is one
 JSON object with the kernels, and the last line is
@@ -285,6 +309,10 @@ WHISPER_ARGV = ["--arch", WHISPER, "--full", "--batch", "8", "--seq", "512",
 # state (102 GB) waits for sharding
 LLAMA_SERVE_ARGV = ["--full", "--layers", "5", *SERVE_ARGV[1:]]
 XATTN_SMOKE_SEQ = 64                    # 11a: the smoke models, card vs CPU
+# phase 12's NCCL store and checkpoint, inside the checkout (``build/`` is
+# ignored by git); removed when the phase ends, passed or failed
+PHASE12_DIR = ROOT / "build" / "phase12"
+MESH_LOSS_TOL = 1e-5    # 12a: the DTensor path's losses against phase 3's
 SMOKE_GATE = 0.5        # xattn gates of the smoke models (11a)
 SERVE_GATE = 1.0        # ... of the served llama-3.2-vision-90b group (11d)
 PEAK_LIMIT = 75e9       # a path that peaks above this has its depth cut
@@ -694,6 +722,10 @@ def main() -> int:
     mark("11e")
     llama_prefill_launches = prefill_phase(counters, "11e", LLAMA, layers=5)
 
+    # -- phase 12: sharding: the gemma path as DTensors on a 1x1 mesh -------
+    mark("12")
+    mesh_launches = mesh_phase(gemma, restart, counters)
+
     flash_launches = {"train gemma-7b 4 layers x 5 steps":
                       gemma["launches"]["flash_attention"],
                       "train deepseek-moe-16b 4 layers x 5 steps":
@@ -703,6 +735,8 @@ def main() -> int:
                       "prefill gemma-7b 28 layers x 3 runs": prefill_launches,
                       "prefill llama-3.2-vision-90b 5 layers x 3 runs":
                       llama_prefill_launches,
+                      "train gemma-7b 4 layers x 5 steps as DTensors on a "
+                      "1x1 mesh": mesh_launches,
                       **restart["launches"], **async_launches}
     kernels = [{
         "name": "flash_attention",
@@ -884,8 +918,8 @@ def restart_phase(gemma: dict, two: dict, counters) -> dict:
             "8a: the restored state differs from the run's final state")
     del final, fresh, tree
     torch.cuda.empty_cache()
-    return {"bytes": nbytes, "warm_s": warm_s, "cold_s": cold_s,
-            "launches": {f"{label} failed run x 2 steps": crashed,
+    return {"bytes": nbytes, "save_s": save_s, "warm_s": warm_s,
+            "cold_s": cold_s, "launches": {f"{label} failed run x 2 steps": crashed,
                          f"{label} resumed x 4 steps":
                          res["launches"]["flash_attention"]}}
 
@@ -2347,6 +2381,214 @@ def report_profile(label: str, prof, wall_ms: float):
     for name, ms, n in rows[:15]:
         print(f"  {ms:9.2f} ms {n:5d}x  {name[:110]}", flush=True)
     return busy, kernels
+
+
+def mesh_phase(gemma: dict, restart: dict, counters) -> int:
+    """Phase 12 on an NCCL process group of world size 1 and a (1, 1)
+    mesh on the card; returns 12a's flash launches. The group is destroyed
+    and the phase's files removed at the end, passed or failed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import make_debug_mesh
+    shutil.rmtree(PHASE12_DIR, ignore_errors=True)
+    PHASE12_DIR.mkdir(parents=True)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{PHASE12_DIR / 'store'}", rank=0,
+        world_size=1)
+    try:
+        mesh = make_debug_mesh((1, 1))
+        print(f"12 mesh {mesh} over {dist.get_backend()} (NCCL "
+              f"{'.'.join(map(str, torch.cuda.nccl.version()))})",
+              flush=True)
+        run = mesh_train_phase(gemma, mesh, counters)
+        mark("12b")
+        mesh_restore_phase(run, restart, mesh)
+        launches = run["launches"]
+        del run
+        torch.cuda.empty_cache()
+        mark("12c")
+        mesh_scan_phase(mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(PHASE12_DIR, ignore_errors=True)
+    return launches
+
+
+def mesh_train_phase(gemma: dict, mesh, counters) -> dict:
+    """12a: phase 3's gemma-7b path with params, optimizer state and
+    batches as DTensors over ``mesh``, through ``make_train_step(cfg, opt,
+    mesh)``; gated against phase 3's run of the same seed and batches."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_optimizer_name
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (batch_shardings, make_train_step,
+                                          opt_state_shardings)
+    from repro_torch.models import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel.sharding import distribute, params_shardings
+    from repro_torch.tree import leaves
+
+    args, cfg, label = gemma["args"], gemma["config"], "12a gemma-7b mesh"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = SyntheticLM(cfg, args.batch, args.seq, seed=args.seed)
+    params = init_params(
+        torch.Generator(device="cuda").manual_seed(args.seed), cfg)
+    psh = params_shardings(params, mesh)
+    params = distribute(params, psh)
+    opt = make_optimizer(args.optimizer or get_optimizer_name(args.arch),
+                         lr=args.lr)
+    state = opt.init(params)
+    osh = opt_state_shardings(state, mesh)
+    step_fn = make_train_step(cfg, opt, mesh)
+
+    def step() -> float:
+        nonlocal params, state
+        batch = {k: x.cuda() for k, x in data.next_batch().items()}
+        batch = distribute(batch, batch_shardings(batch, mesh))
+        params, state, metrics = step_fn(params, state, batch)
+        return float(metrics["loss"])          # waits for the step
+
+    for c in counters.values():
+        c.launches = 0
+    ops.local_map_calls.clear()
+    losses, step_ms = [], []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = {k: c.launches for k, c in counters.items()}
+    regions = dict(ops.local_map_calls)
+    peak = torch.cuda.max_memory_allocated()
+    misplaced = sum(not isinstance(x, DTensor) or x.placements != s.placements
+                    for x, s in zip(leaves(params), leaves(psh)))
+    misplaced += sum(not isinstance(x, int) and (
+        not isinstance(x, DTensor) or x.placements != s.placements)
+        for x, s in zip(leaves(state), leaves(osh)))
+    n_leaves = len(list(leaves(params))) + len(list(leaves(state)))
+    steady = statistics.median(step_ms[1:])
+    tokens = args.batch * args.seq
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, gemma["losses"]))
+    print(f"{label}: param placements, e.g. embed "
+          f"{params['embed'].placements}, scan/s0_attn/mlp/wo "
+          f"{params['scan']['s0_attn']['mlp']['wo'].placements}")
+    print(f"{label} losses: " + " ".join(f"{x:.6f}" for x in losses)
+          + "; phase 3's: " + " ".join(f"{x:.6f}" for x in gemma["losses"])
+          + f"; largest relative difference {rel:.3e} (bound "
+          f"{MESH_LOSS_TOL}), bit-equal: {losses == gemma['losses']}")
+    print(f"{label} ms/step: " + " ".join(f"{x:.1f}" for x in step_ms)
+          + f" (median after the first {steady:.1f}; phase 3's "
+          f"{gemma['steady_ms']:.1f})")
+    print(f"{label} tokens/s: {tokens / steady * 1e3:.1f}, phase 3's "
+          f"{tokens / gemma['steady_ms'] * 1e3:.1f} (ratio "
+          f"{gemma['steady_ms'] / steady:.4f})  peak memory "
+          f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)  launches "
+          + ", ".join(f"{k} {n}" for k, n in launches.items())
+          + f"; leaves not DTensors with their rule's placements: "
+          f"{misplaced} of {n_leaves}")
+    print(f"{label}: regions run under local_map: {len(regions)} ("
+          + "; ".join(f"{k} {n}x" for k, n in regions.items()) + ")",
+          flush=True)
+    require(launches["flash_attention"]
+            == gemma["per_step"]["attn"] * args.steps,
+            "12a: flash launch count is off on the DTensor path")
+    require(rel <= MESH_LOSS_TOL, "12a: the DTensor path's losses moved")
+    require(misplaced == 0, "12a: a leaf lost its DTensor placements")
+    require(peak < PEAK_LIMIT, f"12a: peak {peak / 1e9:.2f} GB")
+    prof, wall_ms = profiled(step)
+    report_profile(f"{label} profile of one more step", prof, wall_ms)
+    return {"params": params, "opt_state": state, "config": cfg,
+            "launches": launches["flash_attention"]}
+
+
+def mesh_restore_phase(run: dict, restart: dict, mesh) -> None:
+    """12b: 12a's final state saved, evicted from the page cache, and
+    restored onto the mesh from ``meta`` targets; every leaf against the
+    saved one and the restore-time rules."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import checkpoint as ck
+    from repro_torch.parallel.sharding import params_shardings
+    from repro_torch.tree import leaves, tree_map
+    label = "12b gemma-7b mesh"
+    d = PHASE12_DIR / "ckpt"
+    d.mkdir()
+    want = state_bytes(run["config"])
+    free = shutil.disk_usage(d).free
+    require(free >= DISK_FACTOR * want,
+            f"12b: {free / 1e9:.1f} GB free, under {DISK_FACTOR}x the "
+            f"{want / 1e9:.2f} GB checkpoint")
+    saved = {"params": run["params"], "opt_state": run["opt_state"]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_dir = Path(ck.save(str(d), 5, saved, metadata={"step": 5}))
+    save_s = time.perf_counter() - t0
+    nbytes = dir_bytes(step_dir)
+    evict(step_dir)
+    targets = tree_map(lambda x: x if isinstance(x, int) else torch.empty(
+        x.shape, dtype=x.dtype, device="meta").requires_grad_(
+        x.requires_grad), saved)
+    t0 = time.perf_counter()
+    got, meta = ck.restore(str(d), targets, mesh=mesh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+
+    def unequal(w, g, s) -> int:
+        if isinstance(w, int):
+            return int(w != g)
+        return int(not (isinstance(g, DTensor)
+                        and g.placements == s.placements
+                        and g.requires_grad == w.requires_grad
+                        and torch_equal(w.full_tensor(), g.full_tensor())))
+    # matched by key: the restored tree's dicts are in sorted-key order
+    bad = sum(leaves(tree_map(unequal, saved, got,
+                              params_shardings(targets, mesh))))
+    print(f"{label}: checkpoint {nbytes} bytes ({nbytes / 1e9:.2f} GB); save "
+          f"of the DTensor state {save_s:.3f} s ({nbytes / save_s / 1e9:.2f} "
+          f"GB/s; 8a: {restart['bytes'] / restart['save_s'] / 1e9:.2f}); "
+          f"restore onto the mesh {restore_s:.3f} s "
+          f"({nbytes / restore_s / 1e9:.2f} GB/s, cold; 8a into fresh tensors: "
+          f"{restart['bytes'] / restart['cold_s'] / 1e9:.2f}); leaves unequal "
+          f"or off their rules' placements: {bad} of "
+          f"{len(list(leaves(saved)))}", flush=True)
+    require(bad == 0 and meta["step"] == 5,
+            "12b: the state restored onto the mesh differs")
+
+
+def mesh_scan_phase(mesh) -> None:
+    """12c: the scan kernel forward and reverse on DTensors at its path
+    shape, against the plain tensors' call: bit-equal."""
+    import torch
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    a = torch.sigmoid(torch.randn(RG_SHAPE, device="cuda",
+                                  generator=gen)) * 0.2 + 0.8
+    b = 0.1 * torch.randn(RG_SHAPE, device="cuda", generator=gen)
+    g = torch.randn(RG_SHAPE, device="cuda", generator=gen)
+    placements = (Shard(0), Shard(2))      # act_rnn: batch, width
+    plain = [x.clone().requires_grad_() for x in (a, b)]
+    dts = [distribute_tensor(x, mesh, placements).requires_grad_()
+           for x in (a, b)]
+    before = rglru_scan_fwd.launches
+    h = ops.rglru_scan(*dts)
+    h.backward(distribute_tensor(g, mesh, h.placements))
+    launched = rglru_scan_fwd.launches - before
+    want = ops.rglru_scan(*plain)
+    want.backward(g)
+    torch.cuda.synchronize()
+    same = [torch_equal(x.full_tensor(), y) for x, y in
+            ((h, want), (dts[0].grad, plain[0].grad),
+             (dts[1].grad, plain[1].grad))]
+    print(f"12c rglru_scan on DTensors {RG_SHAPE} fp32 {placements}: "
+          f"launches {launched} (forward and reverse), h {h.placements}; "
+          f"bit-equal to the plain call: h {same[0]}, da {same[1]}, "
+          f"db {same[2]}", flush=True)
+    require(launched == 2 and all(same),
+            "12c: the scan on DTensors differs from the plain call")
 
 
 def mark(phase: str) -> None:

@@ -22,10 +22,18 @@ Four rules make the layout cross-package:
   their device: parameters stay leaf tensors with ``requires_grad``, and
   optimizer moments stay the tensors the in-place update mutates.
 
+A DTensor leaf is gathered whole (``full_tensor``, a collective: every
+rank of the process group calls ``save`` with the same tree and
+directory) and written as the unsharded leaf would be, so a sharded save
+and an unsharded one write the same bytes. Rank 0 alone writes, and every
+rank returns after a barrier, when the checkpoint is on disk.
+``restore(..., mesh=)`` is the elastic re-shard: every leaf is
+distributed over the restore-time mesh by its rules, whatever mesh saved
+it.
+
 The reference's manifest also holds a serialized JAX treedef, which its
 ``restore`` never reads; here ``treedef`` is null and ``tree_repr`` lists
-the leaves' key paths. The elastic re-shard on restore (``mesh=``) is not
-ported yet (ROADMAP 1.13).
+the leaves' key paths.
 """
 from __future__ import annotations
 
@@ -37,7 +45,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from numpy.lib import format as npy_format
+from torch.distributed.tensor import DTensor
+
+from repro_torch.parallel.sharding import (ShardingRules, distribute,
+                                           params_shardings)
 
 
 def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -65,6 +78,8 @@ def _write_leaf(path: str, leaf) -> Dict:
     if isinstance(leaf, int):
         arr = np.asarray(leaf, np.int32)
     else:
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu").contiguous()
         if t.dtype == torch.bfloat16:
             shape = tuple(t.shape)
@@ -87,10 +102,26 @@ def save(ckpt_dir: str, step: int, tree: Any,
     name (rename old aside -> rename tmp in -> delete old) instead of
     rmtree-then-rename, so there is no window in which the step has no
     valid checkpoint; a crash mid-swap is healed on the next call. Leaves
-    are gathered to the host one at a time."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    are gathered to the host one at a time. A tree with DTensor leaves is
+    saved by every rank together, as the module docstring says."""
     flat = _flatten(tree)
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not any(isinstance(leaf, DTensor) for _, leaf in flat):
+        return _write(ckpt_dir, step, step_dir, flat, metadata)
+    if dist.get_rank() == 0:
+        _write(ckpt_dir, step, step_dir, flat, metadata)
+    else:
+        for _, leaf in flat:          # each gather is a collective
+            if isinstance(leaf, DTensor):
+                leaf.full_tensor()
+    dist.barrier()
+    return step_dir
+
+
+def _write(ckpt_dir: str, step: int, step_dir: str, flat,
+           metadata: Optional[Dict]) -> str:
+    """``save``'s writer: the step directory, then the LATEST pointer."""
+    os.makedirs(ckpt_dir, exist_ok=True)
     trash = os.path.join(ckpt_dir, f".old_step_{step:08d}")
     # heal an interrupted swap: the old tree was moved aside but the new
     # one never landed — put the old checkpoint back before proceeding
@@ -148,17 +179,22 @@ def _read_leaf(path: str, dtype: str):
 
 
 def restore(ckpt_dir: str, target_tree: Any, step: Optional[int] = None,
-            mesh=None) -> Tuple[Any, Dict]:
+            mesh=None, rules: Optional[ShardingRules] = None,
+            shard_fn=None) -> Tuple[Any, Dict]:
     """Load a checkpoint into ``target_tree``; returns ``(tree, metadata)``.
 
-    Every tensor leaf of the target is overwritten in place, on its own
-    device, one leaf at a time; the returned tree holds those same
-    tensors, and the restored values of ``int`` leaves. The checkpoint's
-    leaf count, shapes and dtypes must match the target's."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "restore(mesh=...): the elastic re-shard on restore is not "
-            "ported yet: ROADMAP 1.13")
+    The checkpoint's leaf count, shapes and dtypes must match the
+    target's. Without ``mesh``, every tensor leaf of the target is
+    overwritten in place, on its own device, one leaf at a time; the
+    returned tree holds those same tensors, and the restored values of
+    ``int`` leaves.
+
+    With ``mesh`` (a ``DeviceMesh``), the elastic re-shard: every leaf is
+    distributed over the restore-time mesh with ``shard_fn(shapes, mesh)``,
+    or else with ``params_shardings(shapes, mesh, rules)``, ``shapes``
+    being the target's tree as ``meta`` tensors, whatever mesh saved it. Placements cannot change in place, so the tensor leaves
+    returned are new DTensors; each requires grad where its target leaf
+    did, and ``int`` leaves stay ``int``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -180,6 +216,10 @@ def restore(ckpt_dir: str, target_tree: Any, step: Optional[int] = None,
                 entry["dtype"] != str(want.dtype).split(".")[-1]:
             raise ValueError(f"dtype mismatch at {path}: ckpt "
                              f"{entry['dtype']} vs target {want.dtype}")
+    if mesh is not None:
+        dtypes = [e["dtype"] for e in manifest["leaves"]]
+        return _restore_onto(step_dir, dtypes, flat, target_tree, mesh,
+                             rules, shard_fn), manifest["metadata"]
     values = []
     with torch.no_grad():
         for i, (_, want) in enumerate(flat):
@@ -192,6 +232,28 @@ def restore(ckpt_dir: str, target_tree: Any, step: Optional[int] = None,
                 values.append(want)
             del got
     return _unflatten(target_tree, iter(values)), manifest["metadata"]
+
+
+def _restore_onto(step_dir: str, dtypes: List[str], flat, target_tree,
+                  mesh, rules: Optional[ShardingRules], shard_fn):
+    """``restore``'s re-shard: the target's structure with new DTensor
+    leaves over ``mesh``, distributed one leaf at a time."""
+    # the placements come from shapes alone: meta tensors allocate nothing
+    shapes = _unflatten(target_tree, iter(
+        w if isinstance(w, int) else torch.empty(w.shape, device="meta")
+        for _, w in flat))
+    shardings = (shard_fn(shapes, mesh) if shard_fn is not None
+                 else params_shardings(shapes, mesh, rules))
+    values = []
+    for i, ((_, want), (_, s)) in enumerate(zip(flat, _flatten(shardings))):
+        got = _read_leaf(os.path.join(step_dir, f"arr_{i}.npy"), dtypes[i])
+        if isinstance(want, int):
+            values.append(int(got))
+            continue
+        t = torch.as_tensor(got).requires_grad_(want.requires_grad)
+        values.append(distribute(t, s))
+        del got, t
+    return _unflatten(target_tree, iter(values))
 
 
 def cleanup(ckpt_dir: str, keep: int = 3) -> None:

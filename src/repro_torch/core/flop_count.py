@@ -12,8 +12,8 @@ forward as ``jax.checkpoint`` does.  The hand-written flash-attention
 kernel launches below the dispatcher, so its op carries its own FLOP
 formula (``kernels/ops.py``).
 
-Collective bytes (``CommDebugMode``) wait for sharding (ROADMAP 1.13): on
-one GPU there are none.
+Collective bytes (``CommDebugMode`` over a step on a fake-process-group
+mesh) wait for the dry-run (ROADMAP 1.13b): on one GPU there are none.
 
 Hardware constants live in a frozen :class:`GpuSpec`; :data:`H100_SXM`
 holds NVIDIA's data-sheet values for the H100 SXM5.

@@ -1,20 +1,37 @@
 """Public op wrappers around the hand-written kernels.
 
-Each op is a ``torch.autograd.Function``. Its forward launches the CUDA
-kernel for CUDA tensors and runs the plain version for CPU tensors; there
-is no other path. The backward passes follow ``repro.kernels.ops``:
-``flash_attention`` differentiates the plain reference, recomputed from the
-saved (q, k, v); ``rglru_scan`` runs the reverse-time adjoint recurrence in
-the scan kernel's reverse mode, which also forms da, so the backward makes
-no flipped or shifted copies.
+Each op is a ``torch.autograd.Function`` whose forward calls the kernel as a
+dispatcher op: ``repro_torch::flash_attention_fwd``,
+``repro_torch::rglru_scan_fwd`` and ``repro_torch::rglru_scan_bwd``. On CUDA
+tensors each launches its CUDA kernel through ``ctypes``; its registered CPU
+kernel is the plain version. There is no other path. The backward passes
+follow ``repro.kernels.ops``: ``flash_attention`` differentiates the plain
+reference, recomputed from the saved (q, k, v); ``rglru_scan`` runs the
+reverse-time adjoint recurrence in the scan kernel's reverse mode, which also
+forms da, so the backward makes no flipped or shifted copies.
+``FlopCounterMode`` reads the flash op's FLOP formula: a step's count on the
+card is then its count on the CPU.
 
-The flash kernel is launched through ``ctypes``, below PyTorch's
-dispatcher, so it runs inside the custom op
-``repro_torch::flash_attention_fwd``, whose FLOP formula
-``FlopCounterMode`` reads: a step's count on the card is then its count on
-the CPU, where the plain version's products are counted directly.
+DTensors reach the kernels without reaching ``data_ptr``: each kernel runs
+on the local shards of a layout it computes shard by shard. Every input is
+replicated, sharded on batch (dim 0), or sharded on heads or width (dim 2);
+never on the sequence (dim 1), whose causal attention or recurrence a shard
+cannot compute alone. The scan ops carry a ``register_sharding`` rule.
+Attention's heads shard only over mesh dims whose sizes' product divides
+both H and Kv, so that each shard's GQA map ``h // (H / Kv)`` is the global
+one; that condition spans mesh dims, which a ``register_sharding`` rule (one
+mesh dim's strategies, expanded over the rest) cannot state, so the flash
+forward runs under ``local_map`` with the placements ``_flash_placements``
+picks. Its backward, the plain reference's VJP through autograd, cannot run
+inside a custom op and runs under ``local_map`` with the same placements.
+``local_map_calls`` counts each region's runs.
 """
+import collections
+import math
+
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map, register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from . import ref
@@ -30,9 +47,42 @@ def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_fwd(q, k, v, causal=causal, window=window)
 
 
+@_flash_kernel.register_kernel("cpu")
+def _(q, k, v, causal, window):
+    check_blocks(q.shape[1], k.shape[1])
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
 @_flash_kernel.register_fake
 def _(q, k, v, causal, window):
     return torch.empty_like(q)
+
+
+# The regions run under ``local_map`` on DTensors, by name: one a call.
+local_map_calls = collections.Counter()
+
+
+def _flash_placements(q: DTensor, k: DTensor) -> tuple:
+    """Where attention computes DTensors: on each mesh dim, q's own shard
+    of batch or heads, else replicated. A dim keeps its shard only while
+    the product of the sizes sharding batch divides B, and of those sharding
+    heads divides both H and Kv."""
+    extent = {0: q.shape[0], 2: math.gcd(q.shape[2], k.shape[2])}
+    split = {0: 1, 2: 1}
+    out = []
+    for size, p in zip(q.device_mesh.shape, q.placements):
+        d = p.dim if isinstance(p, Shard) else None
+        if d in extent and extent[d] % (split[d] * size) == 0:
+            split[d] *= size
+            out.append(Shard(d))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _check_device(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
@@ -49,22 +99,40 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, window: int):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        if q.device.type == "cuda":
+        ctx.placements = None
+        _check_device("flash_attention", q)
+        if not isinstance(q, DTensor):
             return _flash_kernel(q, k, v, causal, window)
-        if q.device.type != "cpu":
-            raise ValueError(f"flash_attention: unsupported device {q.device}")
-        check_blocks(q.shape[1], k.shape[1])
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        p = ctx.placements = _flash_placements(q, k)
+        local_map_calls["flash_attention forward"] += 1
+        # one output: its placements as a list (a tuple means one a value)
+        return local_map(_flash_kernel, out_placements=list(p),
+                         in_placements=(p, p, p, None, None),
+                         device_mesh=q.device_mesh,
+                         redistribute_inputs=True)(q, k, v, causal, window)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            qkv = [x.detach().requires_grad_() for x in (q, k, v)]
-            out = ref.flash_attention_ref(*qkv, causal=ctx.causal,
-                                          window=ctx.window)
-        dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        vjp = _flash_vjp
+        if ctx.placements is not None:
+            p = ctx.placements
+            local_map_calls["flash_attention backward"] += 1
+            vjp = local_map(_flash_vjp, out_placements=(p, p, p),
+                            in_placements=(p, p, p, p, None, None),
+                            device_mesh=q.device_mesh,
+                            redistribute_inputs=True)
+        dq, dk, dv = vjp(q, k, v, g, ctx.causal, ctx.window)
         return dq, dk, dv, None, None
+
+
+def _flash_vjp(q, k, v, g, causal: bool, window: int):
+    """(dq, dk, dv): the plain reference differentiated by autograd,
+    recomputed from (q, k, v)."""
+    with torch.enable_grad():
+        qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = ref.flash_attention_ref(*qkv, causal=causal, window=window)
+    return torch.autograd.grad(out, qkv, g)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,18 +141,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashAttention.apply(q, k, v, causal, window)
 
 
+@torch.library.custom_op("repro_torch::rglru_scan_fwd", mutates_args=())
+def _scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The forward kernel as a dispatcher op."""
+    return rglru_scan_fwd(a, b)
+
+
+@_scan_kernel.register_kernel("cpu")
+def _(a, b):
+    rglru_check_blocks(*a.shape[-2:])
+    return ref.rglru_scan_ref(a, b)
+
+
+@_scan_kernel.register_fake
+def _(a, b):
+    return torch.empty_like(b)
+
+
+@torch.library.custom_op("repro_torch::rglru_scan_bwd", mutates_args=())
+def _scan_bwd_kernel(a: torch.Tensor, g: torch.Tensor,
+                     h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reverse-mode kernel as a dispatcher op."""
+    return rglru_scan_bwd(a, g, h)
+
+
+@_scan_bwd_kernel.register_kernel("cpu")
+def _(a, g, h):
+    return ref.rglru_scan_bwd_ref(a, g, h)
+
+
+@_scan_bwd_kernel.register_fake
+def _(a, g, h):
+    return torch.empty_like(a), torch.empty_like(a)
+
+
+_SCAN_PLACEMENTS = (Replicate(), Shard(0), Shard(2))   # over (N, S, R)
+
+
+@register_sharding(torch.ops.repro_torch.rglru_scan_fwd.default)
+def _scan_sharding(a, b):
+    return [([p], [p, p]) for p in _SCAN_PLACEMENTS]
+
+
+@register_sharding(torch.ops.repro_torch.rglru_scan_bwd.default)
+def _scan_bwd_sharding(a, g, h):
+    return [([p, p], [p, p, p]) for p in _SCAN_PLACEMENTS]
+
+
 def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The recurrence over axis -2 of (..., S, R), flattened to (N, S, R):
     the kernel on the card, else the plain version on the CPU."""
+    _check_device("rglru_scan", a)
     s, r = a.shape[-2:]
     a3 = a.reshape(-1, s, r).contiguous()
     b3 = b.reshape(-1, s, r).contiguous()
-    if a.device.type == "cuda":
-        return rglru_scan_fwd(a3, b3).reshape(b.shape)
-    if a.device.type != "cpu":
-        raise ValueError(f"rglru_scan: unsupported device {a.device}")
-    rglru_check_blocks(s, r)
-    return ref.rglru_scan_ref(a3, b3).reshape(b.shape)
+    return _scan_kernel(a3, b3).reshape(b.shape)
 
 
 def _scan_bwd(a: torch.Tensor, g: torch.Tensor,
@@ -95,10 +206,7 @@ def _scan_bwd(a: torch.Tensor, g: torch.Tensor,
     s, r = a.shape[-2:]
     a3, g3, h3 = (x.to(a.dtype).reshape(-1, s, r).contiguous()
                   for x in (a, g, h))
-    if a.device.type == "cuda":
-        da, db = rglru_scan_bwd(a3, g3, h3)
-    else:
-        da, db = ref.rglru_scan_bwd_ref(a3, g3, h3)
+    da, db = _scan_bwd_kernel(a3, g3, h3)
     return da.reshape(a.shape), db.reshape(a.shape)
 
 

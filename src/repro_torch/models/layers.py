@@ -7,8 +7,9 @@ Parameters are nested dicts of tensors whose keys and einsum layouts match
 the JAX pytree exactly (``wq`` is ``(d, H, hd)``, ``wo`` is ``(H, hd, d)``),
 so JAX weights carry across with ``repro_torch.convert.params_from_numpy``.
 
-The JAX code passes activations through ``repro.parallel.sharding.shard``;
-on one chip that is the identity, so the port leaves it out.
+Activations pass through ``repro_torch.parallel.sharding.shard`` where the
+reference's do: the identity off a mesh, a redistribution of a DTensor on
+one.
 
 Python scalars that JAX multiplies into a bf16 array are weakly typed and
 rounded to bf16 first; PyTorch keeps them in fp32. ``_weak`` rounds such a
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import require_device
+from repro_torch.parallel.sharding import constant_like, role_size, shard
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -102,7 +104,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(d, theta, x.device)               # (D/2,)
     angles = positions[..., None].float() * freqs        # (..., S, D/2)
     angles = angles[..., None, :]                        # (..., S, 1, D/2)
-    cos, sin = torch.cos(angles), torch.sin(angles)
+    cos, sin = (constant_like(t, x) for t in (torch.cos(angles),
+                                               torch.sin(angles)))
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -134,6 +137,7 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.gelu(g, approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
+    h = shard(h, "act_ff")
     return torch.einsum("...f,fd->...d", h, p["wo"].to(dt))
 
 
@@ -163,6 +167,21 @@ def _qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor):
     return q, k, v
 
 
+def _shard_q(q: torch.Tensor) -> torch.Tensor:
+    """Tensor-parallel over heads when they divide the TP axis; otherwise
+    sequence-parallel (odd-head archs: whisper 12H, phi4 24H, starcoder 36H,
+    arctic 56H, recurrentgemma 10H)."""
+    if q.shape[-2] % max(role_size("tp"), 1) == 0:
+        return shard(q, "act_heads")
+    return shard(q, "act_heads_seq")
+
+
+def _shard_kv(t: torch.Tensor) -> torch.Tensor:
+    if t.shape[-2] % max(role_size("tp"), 1) == 0:
+        return shard(t, "act_kv_heads")
+    return shard(t, "act_kv")
+
+
 def mha_logits_to_out(q, k, v, mask, cfg: Optional[ModelConfig],
                       softcap: float = 0.0) -> torch.Tensor:
     """Grouped-query attention core. q: (B,S,H,D); k,v: (B,T,Kv,D).
@@ -183,7 +202,8 @@ def mha_logits_to_out(q, k, v, mask, cfg: Optional[ModelConfig],
         cap = _weak(softcap, score_dt)
         logits = cap * torch.tanh(logits / cap)
     if mask is not None:
-        m = mask[:, :, None, :, :] if mask.dim() == 4 else mask
+        m = constant_like(mask[:, :, None, :, :] if mask.dim() == 4
+                          else mask, logits)
         neg = torch.tensor(torch.finfo(score_dt).min / 2, dtype=score_dt,
                            device=logits.device)
         logits = torch.where(m, logits, neg)
@@ -256,6 +276,7 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _shard_q(q), _shard_kv(k), _shard_kv(v)
     if cfg.use_flash_kernel and causal and x.shape[1] >= 256 and window == 0:
         from repro_torch.kernels.ops import flash_attention
         out = flash_attention(q, k, v, causal=True)
@@ -266,6 +287,7 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
         mask = (causal_mask(x.shape[1], x.shape[1], x.device, window=window)
                 if causal else None)
         out = mha_logits_to_out(q, k, v, mask, cfg)
+    out = shard(out, "act_heads")
     return torch.einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
 
 
@@ -282,6 +304,7 @@ def cross_attention_block(p: Params, x: torch.Tensor, enc: torch.Tensor,
     """Cross-attention: queries from x (B,S,d), keys/values from enc (B,T,d);
     no mask, no RoPE, never the flash kernel (as in the reference)."""
     q, k, v = _qkv(p, x, enc)
+    q, k, v = _shard_q(q), _shard_kv(k), _shard_kv(v)
     out = mha_logits_to_out(q, k, v, None, cfg)
     y = torch.einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
     return gate_output(p, y) if gated else y
@@ -337,7 +360,8 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
         valid = age < (pos + 1).clamp(max=s_cache)
     else:
         valid = idx <= pos
-    out = mha_logits_to_out(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+    ck, cv = shard(cache_k, "kv_cache"), shard(cache_v, "kv_cache")
+    out = mha_logits_to_out(q, ck.to(q.dtype), cv.to(q.dtype),
                             valid[None, None, None, :], cfg)
     y = torch.einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
     return y, cache_k, cache_v

@@ -21,9 +21,6 @@ Two steps compute what the reference computes in another way:
     nonzero at each (token, expert, slot) and that sum is exact;
     :func:`assign_slots` scatters straight into (n, g, E, C), bit-equal and
     k times smaller.
-
-The reference's ``shard`` calls are the identity on one chip and are left
-out (sharding is ROADMAP 1.13).
 """
 from __future__ import annotations
 
@@ -33,6 +30,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import shard
 from .config import ModelConfig
 from .layers import Params, apply_mlp, dense_init, init_mlp
 
@@ -136,12 +134,15 @@ def apply_moe(p: Params, x: torch.Tensor,
     dispatch, combine = assign_slots(gate_idx, gate_vals, m.num_experts,
                                      capacity(cfg, g))
     dt = x.dtype
+    spec = "moe_ecd_grouped" if m.dispatch_local else "moe_ecd"
     expert_in = torch.einsum("ngd,ngec->necd", xg, dispatch.to(dt))
+    expert_in = shard(expert_in, spec)
     w = p["experts"]
     h = torch.einsum("necd,edf->necf", expert_in, w["wi"].to(dt))
     gte = torch.einsum("necd,edf->necf", expert_in, w["wg"].to(dt))
     h = F.silu(gte) * h
     eout = torch.einsum("necf,efd->necd", h, w["wo"].to(dt))
+    eout = shard(eout, spec)
     out = torch.einsum("necd,ngec->ngd", eout, combine.to(dt))
 
     out = out.reshape(b, s, d)

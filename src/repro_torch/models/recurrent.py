@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import require_device
 from repro_torch.kernels.ref import rglru_scan_ref
+from repro_torch.parallel.sharding import shard
 from .config import ModelConfig
 from .layers import Params, _weak, dense_init
 
@@ -102,6 +103,7 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gate = F.gelu(torch.einsum("...d,dr->...r", x, p["rg_in"]["wy"].to(dt)),
                   approximate="tanh")
     u = _causal_conv(u, p["conv"])
+    u = shard(u, "act_rnn")
     a, b = _rglru_coeffs(p, u)
     if cfg.use_flash_kernel and x.shape[1] >= 256:
         from repro_torch.kernels.ops import rglru_scan
@@ -109,6 +111,7 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = rglru_scan_ref(a, b)
     h = h.to(dt) * gate
+    h = shard(h, "act_rnn")
     return torch.einsum("...r,rd->...d", h, p["rg_out"]["wo"].to(dt))
 
 

@@ -34,9 +34,12 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import require_device
+from repro_torch.parallel.sharding import (constant_like, reduce_partials,
+                                           replicate_dim, shard)
 from repro_torch.tree import leaves, tree_map
 from . import recurrent as rec
 from .config import ModelConfig
@@ -117,6 +120,7 @@ def _apply_block(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
         aux = {"aux_loss": moe_aux["aux_loss"], "z_loss": moe_aux["z_loss"]}
     if "mlp" in p:
         x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
+    x = shard(x, "act_seq" if cfg.seq_parallel_residual else "act_btd")
     return x, aux
 
 
@@ -141,7 +145,7 @@ def _unstack(tree, n: int):
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
-    return list(torch.unbind(tree, 0))
+    return list(torch.unbind(replicate_dim(tree, 0), 0))
 
 
 def _stacked(n: int, draw) -> Params:
@@ -356,10 +360,16 @@ def forward(params: Params, batch: Batch,
     tokens = batch["tokens"]
     b, s = tokens.shape
     dt = dtype_of(cfg.dtype)
-    x = params["embed"][tokens].to(dt)
+    # ``embedding``, not indexing: DTensor (torch 2.11) cannot propagate the
+    # index backward over a sharded table; the forward is the same gather.
+    # Over a sharded table DTensor masks with the ids as given, so they come
+    # whole to every rank, and the masked sum is reduced at once
+    ids = replicate_dim(tokens, 0)
+    x = reduce_partials(F.embedding(ids, params["embed"])).to(dt)
     x = x * _weak(math.sqrt(cfg.d_model), dt)   # scaled in the model dtype
     if cfg.encoder_layers:
         x = x + params["pos_embed"][None, :s].to(dt)
+    x = shard(x, "act_btd")
     positions = torch.arange(s, device=tokens.device)[None, :]
     enc = _get_encoder_states(params, batch, cfg)
     if enc is not None:
@@ -397,13 +407,16 @@ def forward(params: Params, batch: Batch,
         logits = _weak(cfg.logits_softcap, dt) * torch.tanh(
             logits.float() / cfg.logits_softcap).to(dt)
     logits = _mask_pad_vocab(logits, cfg)
+    logits = shard(logits, "logits")
     return logits, aux_total
 
 
 def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.padded_vocab == cfg.vocab:
         return logits
-    valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+    valid = constant_like(torch.arange(cfg.padded_vocab,
+                                       device=logits.device) < cfg.vocab,
+                          logits)
     neg = torch.tensor(torch.finfo(torch.float32).min / 2,
                        device=logits.device).to(logits.dtype)
     return torch.where(valid, logits, neg)
@@ -415,12 +428,15 @@ def loss_fn(params: Params, batch: Batch,
     labels = batch["labels"]
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    # the gathered logit keeps its trailing axis until it meets logz: over
+    # a vocab-sharded DTensor it is a masked partial sum, whose reduction
+    # needs the mask's own rank
+    label_logit = torch.gather(logits, -1, labels[..., None].long())
     mask: Optional[torch.Tensor] = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(labels, dtype=torch.float32)
-    ce = ((logz - label_logit) * mask).sum() / torch.clamp(mask.sum(),
-                                                           min=1.0)
+    nll = (logz[..., None] - label_logit)[..., 0]
+    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     loss = ce + aux["aux_loss"] + aux["z_loss"]
     return loss, {"ce": ce, **aux}
 

@@ -2,25 +2,30 @@
 manager tests on the torch side, the in-place restore, the on-disk layout
 byte for byte in both directions (fp32 AdamW, bf16 AdamW moments and
 adafactor's factored state), restart equivalence through the port's
-``launch.train`` (xlstm-350m's also against ``repro.launch.train``), and
-the restored state of a run equal to its final state."""
+``launch.train`` (xlstm-350m's also against ``repro.launch.train``), the
+restored state of a run equal to its final state, and, on 8 gloo ranks,
+the elastic re-shard on restore and the bytes of a sharded save."""
 import filecmp
 import json
 import os
+import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 import repro.checkpoint as jck
 from repro.launch import train as jax_train
 from repro.optim import make_optimizer as jax_optimizer
 from repro_torch import checkpoint as ck
 from repro_torch.convert import params_from_numpy
-from repro_torch.launch import train
+from repro_torch.launch import make_debug_mesh, train
 from repro_torch.optim import make_optimizer
+from repro_torch.parallel.sharding import replicated
 from repro_torch.tree import leaves, tree_map
 from test_torch_optim import carried_jax_run
 
@@ -135,15 +140,139 @@ class TestCheckpoint:
         assert torch.equal(fresh["w"], params["w"])
         assert torch.equal(fstate["nu"]["w"], state["nu"]["w"])
 
-    def test_mesh_restore_names_its_roadmap_item(self, tmp_path):
-        ck.save(str(tmp_path), 0, {"a": torch.zeros(2)})
-        with pytest.raises(NotImplementedError, match="ROADMAP 1.13"):
-            ck.restore(str(tmp_path), {"a": torch.zeros(2)}, mesh=object())
-
     def test_missing_checkpoint_raises(self, tmp_path):
         assert ck.latest_step(str(tmp_path)) is None
         with pytest.raises(FileNotFoundError):
             ck.restore(str(tmp_path), {"a": torch.zeros(2)})
+
+
+# -- the elastic re-shard on restore, 8 gloo ranks -----------------------------
+
+RANKS = 8
+ELASTIC_MESHES = ((4, 2), (8, 1))
+GLOO_TIMEOUT_S = 180
+
+
+def elastic_tree():
+    return {"mlp": {"wi": torch.arange(32.0).reshape(4, 8)}}
+
+
+def mixed_tree():
+    """Leaves the layout treats apart: fp32 sharded two ways, an uneven
+    dim the guard replicates, bf16 moments and the ``int`` step."""
+    gen = torch.Generator().manual_seed(0)
+    params = {"embed": torch.randn(16, 8, generator=gen),
+              "mlp": {"wi": torch.randn(8, 5, generator=gen)}}
+    return {"params": tree_map(lambda x: x.requires_grad_(), params),
+            "opt_state": {"step": 3, "mu": tree_map(
+                lambda x: x.detach().bfloat16(), params)}}
+
+
+def _elastic_rank(rank: int, world: int, d: str) -> None:
+    """One gloo rank: restores the unsharded checkpoints onto each mesh,
+    saves the re-sharded mixed tree with every other rank to one
+    directory, and writes what it saw."""
+    torch.set_num_threads(1)     # 8 ranks on a few cores
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            rank=rank, world_size=world)
+    found = {}
+    try:
+        want = elastic_tree()["mlp"]["wi"]
+        for shape in ELASTIC_MESHES:
+            mesh = make_debug_mesh(shape, device_type="cpu")
+            out, _ = ck.restore(os.path.join(d, "elastic"), elastic_tree(),
+                                mesh=mesh)
+            leaf = out["mlp"]["wi"]
+            found[str(shape)] = {
+                "dtensor": isinstance(leaf, DTensor),
+                "equal": torch.equal(leaf.full_tensor(), want),
+                "replicated": all(p.is_replicate() for p in leaf.placements),
+                "local": list(leaf.to_local().shape)}
+        mesh = make_debug_mesh(ELASTIC_MESHES[0], device_type="cpu")
+        out, _ = ck.restore(os.path.join(d, "mixed"), mixed_tree(), mesh=mesh)
+        found["mixed"] = {
+            "requires_grad": [x.requires_grad for x in leaves(out["params"])],
+            "step": out["opt_state"]["step"],
+            "embed": str(out["params"]["embed"].placements),
+            "wi": str(out["params"]["mlp"]["wi"].placements)}
+        step_dir = ck.save(os.path.join(d, "sharded"), 0, out)
+        found["saved"] = os.path.isfile(os.path.join(step_dir,
+                                                     "manifest.json"))
+        rep, _ = ck.restore(os.path.join(d, "mixed"), mixed_tree(), mesh=mesh,
+                            shard_fn=lambda t, m: tree_map(
+                                lambda _: replicated(m), t))
+        found["shard_fn"] = all(p.is_replicate() for x in leaves(rep)
+                                if isinstance(x, DTensor)
+                                for p in x.placements)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(d, f"rank_{rank}.json"), "w") as f:
+        json.dump(found, f)
+
+
+@pytest.fixture(scope="module")
+def elastic(tmp_path_factory):
+    """What each of 8 gloo ranks saw; and the directory."""
+    d = str(tmp_path_factory.mktemp("elastic"))
+    ck.save(os.path.join(d, "elastic"), 0, elastic_tree())
+    ck.save(os.path.join(d, "mixed"), 0, mixed_tree())
+    ctx = torch.multiprocessing.spawn(_elastic_rank, args=(RANKS, d),
+                                      nprocs=RANKS, join=False)
+    deadline = time.monotonic() + GLOO_TIMEOUT_S
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"the gloo ranks took over {GLOO_TIMEOUT_S} s")
+    found = []
+    for r in range(RANKS):
+        with open(os.path.join(d, f"rank_{r}.json")) as f:
+            found.append(json.load(f))
+    return d, found
+
+
+def test_elastic_reshard_on_restore(elastic):
+    """Saved unsharded, restored onto a (4, 2) and then an (8, 1) mesh:
+    values equal on every rank, and on the first mesh the leaf is sharded
+    by the restore-time rules (``mlp/wi``: rows over data, columns over
+    model), on the second, where 4 rows do not divide 8, columns only."""
+    _, found = elastic
+    for f in found:
+        first, second = f[str(ELASTIC_MESHES[0])], f[str(ELASTIC_MESHES[1])]
+        assert first["dtensor"] and first["equal"]
+        assert not first["replicated"] and first["local"] == [1, 4]
+        assert second["dtensor"] and second["equal"]
+        assert second["local"] == [4, 8]
+
+
+def test_restore_onto_a_mesh_keeps_grads_and_int_leaves(elastic):
+    _, found = elastic
+    for f in found:
+        mixed = f["mixed"]
+        assert mixed["requires_grad"] == [True, True] and mixed["step"] == 3
+        # (V, M) embed: vocab over model, d_model over data
+        assert mixed["embed"] == "(Shard(dim=1), Shard(dim=0))"
+        # (M, F) wi: M over data; F = 5 does not divide over model's 2
+        assert mixed["wi"] == "(Shard(dim=0), Replicate())"
+        assert f["shard_fn"]
+
+
+def test_sharded_save_writes_the_unsharded_bytes(elastic):
+    """The 8 ranks' save of the re-sharded tree (DTensors gathered whole,
+    rank 0 the one writer) is the unsharded save, file for file and byte
+    for byte; it is on disk when ``save`` returns on any rank, and no
+    rank left anything else in the directory."""
+    d, found = elastic
+    assert all(f["saved"] for f in found)
+    assert sorted(os.listdir(os.path.join(d, "sharded"))) \
+        == ["LATEST", "step_00000000"]
+    plain = os.path.join(d, "mixed", "step_00000000")
+    got = os.path.join(d, "sharded", "step_00000000")
+    names = sorted(os.listdir(plain))
+    assert sorted(os.listdir(got)) == names
+    match, mismatch, errors = filecmp.cmpfiles(plain, got, names,
+                                               shallow=False)
+    assert match == names, (mismatch, errors)
 
 
 # -- the layout across packages ------------------------------------------------

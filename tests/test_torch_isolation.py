@@ -20,6 +20,18 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 """
 
+SHARDING_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")}
+for name in names:
+    importlib.import_module(name)
+print(sorted({"repro_torch.parallel", "repro_torch.parallel.sharding",
+              "repro_torch.launch.mesh"} - names),
+      "torch.testing._internal.distributed.fake_pg" in sys.modules)
+"""
+
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=SRC,
@@ -28,6 +40,16 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 20 and bad == "[]", out.stdout
+
+
+def test_the_sharding_modules_are_probed_and_fake_pg_is_not_loaded():
+    """The walk above reaches the sharding layer and the mesh; importing
+    the port never loads the fake process group, which only tests use."""
+    out = subprocess.run([sys.executable, "-c", SHARDING_PROBE], cwd=SRC,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False", out.stdout
 
 
 def test_no_import_statement_names_jax_or_repro():
