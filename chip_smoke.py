@@ -203,7 +203,26 @@ for each source, all started together), then
           8a's;
        c. the scan kernel forward and reverse on DTensor inputs at its path
           shape (2, 2048, 2560) fp32, batch over data and width over model,
-          bit-equal to the plain tensors' call.
+          bit-equal to the plain tensors' call;
+     and, while the group is up, one more step of 12a's path with its FLOPs
+     counted by ``FlopCounterMode`` and its collectives by ``CommDebugMode``
+     (launch counts set to 0 just before and read just after: 8 flash
+     launches);
+ 13. the dry-run (``launch/dryrun.py``) on fake ``cuda`` tensors over fake
+     process groups, after phase 12's group is destroyed:
+       a. 12a's step traced through ``dryrun.trace_step`` on a (1, 1) mesh
+          over a fake group of world size 1: its FLOPs equal to the real
+          step's (relative 1e-9), its collectives equal by kind and count,
+          its peak of live bytes within 10% of 12a's
+          ``max_memory_allocated`` (the ratio printed);
+       b. the production cells gemma-7b ``train_4k``, ``prefill_32k`` and
+          ``decode_32k`` on 16 x 16, gemma-7b ``train_4k`` on 2 x 16 x 16,
+          arctic-480b and llama-3.2-vision-90b ``train_4k`` on 16 x 16
+          through ``dryrun_cell``: each ``ok``, with its bytes and FLOPs a
+          device, collective wire bytes by kind, the three roofline terms
+          under the H100 SXM5 constants, the bottleneck, ``mfu_bound`` and
+          the trace's seconds; each train cell's ``useful_flops_ratio`` at
+          most 1.
 
 Each result is printed as it comes; the line before the card's name is one
 JSON object with the kernels, and the last line is
@@ -313,6 +332,16 @@ XATTN_SMOKE_SEQ = 64                    # 11a: the smoke models, card vs CPU
 # ignored by git); removed when the phase ends, passed or failed
 PHASE12_DIR = ROOT / "build" / "phase12"
 MESH_LOSS_TOL = 1e-5    # 12a: the DTensor path's losses against phase 3's
+DRYRUN_FLOP_TOL = 1e-9  # 13a: traced FLOPs against the real step's
+DRYRUN_PEAK_TOL = 0.10  # 13a: traced peak bytes against 12a's measured one
+DRYRUN_CELLS = [        # 13b: (arch, shape, multi_pod)
+    ("gemma-7b", "train_4k", False), ("gemma-7b", "prefill_32k", False),
+    ("gemma-7b", "decode_32k", False), ("gemma-7b", "train_4k", True),
+    ("arctic-480b", "train_4k", False),
+    ("llama-3.2-vision-90b", "train_4k", False)]
+COMM_KINDS = (("all_gather", "all-gather"), ("reduce_scatter",
+              "reduce-scatter"), ("all_reduce", "all-reduce"),
+              ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"))
 SMOKE_GATE = 0.5        # xattn gates of the smoke models (11a)
 SERVE_GATE = 1.0        # ... of the served llama-3.2-vision-90b group (11d)
 PEAK_LIMIT = 75e9       # a path that peaks above this has its depth cut
@@ -724,7 +753,11 @@ def main() -> int:
 
     # -- phase 12: sharding: the gemma path as DTensors on a 1x1 mesh -------
     mark("12")
-    mesh_launches = mesh_phase(gemma, restart, counters)
+    mesh_launches, counted = mesh_phase(gemma, restart, counters)
+
+    # -- phase 13: the dry-run on fake cuda tensors --------------------------
+    mark("13a")
+    dryrun_phase(gemma, counted)
 
     flash_launches = {"train gemma-7b 4 layers x 5 steps":
                       gemma["launches"]["flash_attention"],
@@ -737,6 +770,8 @@ def main() -> int:
                       llama_prefill_launches,
                       "train gemma-7b 4 layers x 5 steps as DTensors on a "
                       "1x1 mesh": mesh_launches,
+                      "train gemma-7b 4 layers x 1 step as DTensors, "
+                      "counted (13a)": counted["launches"],
                       **restart["launches"], **async_launches}
     kernels = [{
         "name": "flash_attention",
@@ -2403,7 +2438,7 @@ def mesh_phase(gemma: dict, restart: dict, counters) -> int:
         run = mesh_train_phase(gemma, mesh, counters)
         mark("12b")
         mesh_restore_phase(run, restart, mesh)
-        launches = run["launches"]
+        launches, counted = run["launches"], run["counted"]
         del run
         torch.cuda.empty_cache()
         mark("12c")
@@ -2411,7 +2446,66 @@ def mesh_phase(gemma: dict, restart: dict, counters) -> int:
     finally:
         dist.destroy_process_group()
         shutil.rmtree(PHASE12_DIR, ignore_errors=True)
-    return launches
+    return launches, counted
+
+
+def dryrun_phase(gemma: dict, real: dict) -> None:
+    """Phase 13, the dry-run (``launch/dryrun.py``) on fake ``cuda``
+    tensors over fake process groups: 12a's step against its real count,
+    then the production cells."""
+    from repro_torch.configs import ShapeSpec, get_optimizer_name
+    from repro_torch.launch import dryrun, make_debug_mesh
+    args, cfg = gemma["args"], gemma["config"]
+    label = "13a gemma-7b fake vs real"
+    with dryrun.fake_process_group(1):
+        out = dryrun.trace_step(
+            cfg, ShapeSpec("12a", args.seq, args.batch, "train"),
+            make_debug_mesh((1, 1)),
+            args.optimizer or get_optimizer_name(args.arch))
+    c = out["counts"]
+    rel = abs(c.flops - real["flops"]) / real["flops"]
+    ratio = c.peak_bytes / real["peak"]
+    print(f"{label}: FLOPs {c.flops} traced, {real['flops']} counted on the "
+          f"real step (relative difference {rel:.3e}, bound "
+          f"{DRYRUN_FLOP_TOL}); collectives by kind {c.collectives.count_by_kind}"
+          f" traced, {real['collectives']} on the real step; peak bytes "
+          f"{c.peak_bytes} traced ({c.peak_bytes / 1e9:.2f} GB, arguments "
+          f"{c.argument_bytes / 1e9:.2f} GB) against 12a's "
+          f"max_memory_allocated {real['peak'] / 1e9:.2f} GB: ratio "
+          f"{ratio:.4f} (bound 1 +- {DRYRUN_PEAK_TOL}); trace "
+          f"{out['seconds']:.1f} s; the real step's flash launches "
+          f"{real['launches']}", flush=True)
+    require(rel <= DRYRUN_FLOP_TOL, "13a: the trace's FLOPs are off")
+    require(c.collectives.count_by_kind == real["collectives"],
+            "13a: the trace's collectives differ from the real step's")
+    require(abs(ratio - 1) <= DRYRUN_PEAK_TOL,
+            "13a: the trace's peak is off the measured one")
+    mark("13b")
+    from repro_torch.launch.dryrun import dryrun_cell
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        rec = dryrun_cell(arch, shape, multi_pod=multi_pod, verbose=False)
+        head = f"13b [{rec['mesh']}] {arch} {shape}"
+        if rec["status"] != "ok":
+            print(f"{head}: {rec['status']} {rec.get('error', '')}\n"
+                  f"{rec.get('traceback', '')}", flush=True)
+        require(rec["status"] == "ok", f"{head}: {rec['status']}")
+        r, coll = rec["roofline"], rec["collectives"]["bytes_by_kind"]
+        print(f"{head}: bytes a device "
+              f"{rec['memory']['total_bytes_per_device'] / 2**30:.2f} GiB "
+              f"(arguments {rec['memory']['argument_size_in_bytes'] / 2**30:.2f}"
+              f" GiB), FLOPs a device {r['flops']:.4e}, local op bytes "
+              f"{r['hbm_bytes']:.4e}, collective wire bytes "
+              + ", ".join(f"{k} {v:.4e}" for k, v in sorted(coll.items()))
+              + f"; under {r['device']} constants t_compute "
+              f"{r['t_compute_s'] * 1e3:.2f} ms, t_memory "
+              f"{r['t_memory_s'] * 1e3:.2f} ms, t_collective "
+              f"{r['t_collective_s'] * 1e3:.2f} ms, bound {r['bottleneck']}, "
+              f"mfu_bound {r['mfu_bound']:.4f}, useful_flops_ratio "
+              f"{r['useful_flops_ratio']:.4f}; trace {rec['lower_s']:.1f} s",
+              flush=True)
+        if rec["kind"] == "train":
+            require(r["useful_flops_ratio"] <= 1,
+                    f"{head}: more useful FLOPs than counted ones")
 
 
 def mesh_train_phase(gemma: dict, mesh, counters) -> dict:
@@ -2444,12 +2538,17 @@ def mesh_train_phase(gemma: dict, mesh, counters) -> dict:
     osh = opt_state_shardings(state, mesh)
     step_fn = make_train_step(cfg, opt, mesh)
 
-    def step() -> float:
-        nonlocal params, state
+    def next_batch() -> dict:
         batch = {k: x.cuda() for k, x in data.next_batch().items()}
-        batch = distribute(batch, batch_shardings(batch, mesh))
+        return distribute(batch, batch_shardings(batch, mesh))
+
+    def train(batch) -> float:
+        nonlocal params, state
         params, state, metrics = step_fn(params, state, batch)
         return float(metrics["loss"])          # waits for the step
+
+    def step() -> float:
+        return train(next_batch())
 
     for c in counters.values():
         c.launches = 0
@@ -2500,7 +2599,30 @@ def mesh_train_phase(gemma: dict, mesh, counters) -> dict:
     prof, wall_ms = profiled(step)
     report_profile(f"{label} profile of one more step", prof, wall_ms)
     return {"params": params, "opt_state": state, "config": cfg,
-            "launches": launches["flash_attention"]}
+            "launches": launches["flash_attention"],
+            "counted": counted_step(train, next_batch(), counters, peak)}
+
+
+def counted_step(train, batch, counters, peak: int) -> dict:
+    """13a's real side: one more step of 12a's path on a batch already on
+    the mesh, its FLOPs counted by ``FlopCounterMode`` and its collectives
+    by ``CommDebugMode`` (entered first, so that the FLOP counter, on top,
+    sees each DTensor op once), launch counts set to 0 just before and
+    read just after."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils.flop_counter import FlopCounterMode
+    for c in counters.values():
+        c.launches = 0
+    with CommDebugMode() as comm, FlopCounterMode(display=False) as flops:
+        train(batch)
+    kinds = {}
+    for op, n in comm.get_comm_counts().items():
+        name = getattr(op, "__name__", str(op))
+        kind = next((k for part, k in COMM_KINDS if part in name), name)
+        kinds[kind] = kinds.get(kind, 0) + n
+    return {"flops": flops.get_total_flops(),
+            "collectives": {k: n for k, n in kinds.items() if n},
+            "launches": counters["flash_attention"].launches, "peak": peak}
 
 
 def mesh_restore_phase(run: dict, restart: dict, mesh) -> None:

@@ -1,7 +1,8 @@
 """Architecture registry: the 10 assigned configs (+ reduced smoke forms).
 
 The port's own copy of ``repro.configs``; ``shapes.py`` carries the
-reference's ``SHAPES`` data without its JAX input specs. Usage:
+reference's ``SHAPES``, ``shape_applicable`` and input specs (``meta``
+tensors). Usage:
 ``get_config("gemma-7b")``, ``get_config("gemma-7b", smoke=True)``,
 ``--arch <id>`` in the launchers.
 """
@@ -12,7 +13,7 @@ import importlib
 from typing import List
 
 from repro_torch.models.config import ModelConfig
-from .shapes import SHAPES, ShapeSpec
+from .shapes import SHAPES, ShapeSpec, input_specs, shape_applicable
 
 _ARCH_MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
@@ -72,4 +73,4 @@ def get_optimizer_name(arch: str) -> str:
 
 
 __all__ = ["ARCH_IDS", "SHAPES", "ShapeSpec", "get_config",
-           "get_optimizer_name"]
+           "get_optimizer_name", "input_specs", "shape_applicable"]

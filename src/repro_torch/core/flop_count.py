@@ -1,4 +1,5 @@
-"""FLOPs of a training step on the GPU, roofline terms, hardware constants.
+"""FLOPs and bytes of a training step on the GPU, roofline terms, hardware
+constants.
 
 The port's counterpart of the reference's compiled-HLO profiler
 (``repro/core/hlo_static.py::parse_hlo_profile``) and its roofline module
@@ -12,16 +13,28 @@ forward as ``jax.checkpoint`` does.  The hand-written flash-attention
 kernel launches below the dispatcher, so its op carries its own FLOP
 formula (``kernels/ops.py``).
 
-Collective bytes (``CommDebugMode`` over a step on a fake-process-group
-mesh) wait for the dry-run (ROADMAP 1.13b): on one GPU there are none.
+A step on DTensors is counted per device by :func:`count_device`, which
+sees the local ops that DTensor lowers each op to: the FLOPs one rank
+computes (the work every rank repeats included), the bytes its local ops
+read and write, the peak of its live local bytes and its collectives
+(``core/comm_count.py``). The dry-run (``launch/dryrun.py``) traces
+production meshes this way on fake tensors over a fake process group.
 
 Hardware constants live in a frozen :class:`GpuSpec`; :data:`H100_SXM`
 holds NVIDIA's data-sheet values for the H100 SXM5.
 """
 from __future__ import annotations
 
+import sys
+import weakref
 from dataclasses import dataclass, field
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterable, List
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.core.comm_count import CollectiveStats, collective_kind
+from repro_torch.core.comm_count import record as record_collective
 
 
 @dataclass(frozen=True)
@@ -95,6 +108,190 @@ def count_train_flops(cfg, batch: int, seq: int) -> int:
         return count_step_flops(make_train_step(cfg, opt), params,
                                 opt.init(params), inputs)
 
+
+
+# ---------------------------------------------------------------------------
+# Per-device counts of a step on DTensors
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class DeviceCounts:
+    """One rank's counts of one step.
+
+    ``hbm_bytes`` is the bytes every local op reads and writes: each op's
+    tensor inputs and outputs, unfused; views and ops that return no
+    tensor count none. XLA's
+    ``bytes accessed`` counts a fusion's inputs and outputs once, so this
+    counts more. ``peak_bytes`` is the most local bytes alive at once: the
+    step's arguments (params, optimizer state, batch) and everything its
+    ops allocate while it runs, the counterpart of ``memory_analysis``'s
+    argument + output + temp - alias (the optimizer updates in place where
+    the reference donates). ``local_ops`` counts the ops counted; ``ops``
+    holds per-op totals by op name."""
+
+    flops: int = 0
+    hbm_bytes: int = 0
+    local_ops: int = 0
+    argument_bytes: int = 0
+    peak_bytes: int = 0
+    collectives: CollectiveStats = field(default_factory=CollectiveStats)
+    ops: Dict[str, Dict] = field(default_factory=dict)
+
+    def top_ops(self, n: int) -> List[Dict]:
+        """The ``n`` ops with the most FLOPs, then bytes."""
+        rows = [{"name": k, **v} for k, v in self.ops.items()]
+        rows.sort(key=lambda r: (r["flops"], r["bytes"] + r["coll_bytes"]),
+                  reverse=True)
+        return rows[:n]
+
+
+def _tensors(x) -> Iterable[torch.Tensor]:
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for t in x:
+            yield from _tensors(t)
+    elif isinstance(x, dict):
+        for t in x.values():
+            yield from _tensors(t)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _is_view(func) -> bool:
+    """An op whose outputs alias its inputs without writing them: by its
+    schema, or one of ``_VIEWS``."""
+    if func._overloadpacket._qualified_op_name in _VIEWS:
+        return True
+    returns = func._schema.returns
+    return bool(returns) and all(
+        r.alias_info is not None and not r.alias_info.is_write
+        for r in returns)
+
+
+# a view whose schema does not say so, and a functional collective's wait
+# and autograd wrapper, which hand back the collective's own output
+_VIEWS = ("aten::_unsafe_view", "_c10d_functional::wait_tensor",
+          "_c10d_functional::_wrap_tensor_autograd")
+
+
+# DTensor runs ops of its own to infer shardings (on fake tensors of the
+# global shapes); they are none of the rank's work.
+_PROPAGATION_FILE = "tensor/_sharding_prop.py"
+
+
+def _in_sharding_propagation() -> bool:
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.endswith(_PROPAGATION_FILE):
+            return True
+        f = f.f_back
+    return False
+
+
+class DeviceCounter(TorchDispatchMode):
+    """Counts, while active, the local ops of one rank (see
+    :class:`DeviceCounts`). An op on DTensors is handed back
+    (``NotImplemented``) so that DTensor lowers it to local ops and
+    collectives first. Counted are the ops that run in the fake mode that
+    was active on entry (none for real tensors), outside DTensor's sharding
+    propagation. FLOPs come from ``FlopCounterMode``'s formulas, so an op
+    counts what it counts there. ``arguments`` are the tensors alive before
+    the step: their local bytes start the live count."""
+
+    def __init__(self, arguments: Iterable[torch.Tensor] = ()):
+        from torch._guards import active_fake_mode
+        from torch.utils.flop_counter import FlopCounterMode
+
+        import repro_torch.kernels.ops  # noqa: F401  (the flash formula)
+        super().__init__()
+        self.counts = DeviceCounts()
+        self._flops = FlopCounterMode(display=False)
+        self._fake_mode = active_fake_mode()
+        self._live: Dict[int, int] = {}     # storage id -> bytes
+        self._refs: Dict[int, weakref.ref] = {}
+        self._live_bytes = 0
+        for t in arguments:
+            self._track(_local(t))
+        self.counts.argument_bytes = self.counts.peak_bytes = self._live_bytes
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._live:
+            return
+        self._live[key] = st.nbytes()
+        self._live_bytes += self._live[key]
+        self._refs[key] = weakref.ref(st, lambda _, k=key: self._free(k))
+
+    def _free(self, key: int) -> None:
+        self._live_bytes -= self._live.pop(key, 0)
+        self._refs.pop(key, None)
+
+    def _counted(self) -> bool:
+        from torch._guards import active_fake_mode
+        return (active_fake_mode() is self._fake_mode
+                and not _in_sharding_propagation())
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        if not self._counted():
+            return func(*args, **kwargs)
+        if func is not torch.ops.prim.device.default:
+            with self:      # as FlopCounterMode: count what an op lowers to
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        if (func is torch.ops._c10d_functional.wait_tensor.default
+                and self._fake_mode is not None):
+            # the fake kernel returns a new tensor where the real one
+            # returns its input
+            return args[0]
+        out = func(*args, **kwargs)
+        self._count(func, args, kwargs, out)
+        return out
+
+    def _count(self, func, args, kwargs, out) -> None:
+        c = self.counts
+        before = self._flops.get_total_flops()
+        self._flops._count_flops(func._overloadpacket, out, args, kwargs)
+        flops = self._flops.get_total_flops() - before
+        coll = record_collective(c.collectives, func, args, kwargs, out)
+        outs = list(_tensors(out))
+        moved = 0
+        if outs and not _is_view(func):
+            seen = {id(t): t for t in _tensors((args, kwargs))}
+            moved = sum(t.numel() * t.element_size()
+                        for t in (*seen.values(), *outs))
+            for t in outs:
+                self._track(t)
+        c.flops += flops
+        c.hbm_bytes += moved
+        c.local_ops += 1
+        c.peak_bytes = max(c.peak_bytes, self._live_bytes)
+        kind = collective_kind(func) or ("dot" if flops else "op")
+        row = c.ops.setdefault(str(func), {"kind": kind, "flops": 0,
+                                           "bytes": 0, "coll_bytes": 0})
+        row["flops"] += flops
+        row["bytes"] += moved
+        row["coll_bytes"] += coll
+
+
+def count_device(fn: Callable, *args, arguments: Iterable = (),
+                 **kwargs) -> DeviceCounts:
+    """One rank's :class:`DeviceCounts` of one call of ``fn(*args,
+    **kwargs)``. ``arguments``: the tensors alive before the call (a
+    DTensor counts its local shard)."""
+    with DeviceCounter(arguments) as counter:
+        fn(*args, **kwargs)
+    return counter.counts
 
 @dataclass
 class RooflineTerms:

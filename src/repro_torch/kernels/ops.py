@@ -22,19 +22,24 @@ both H and Kv, so that each shard's GQA map ``h // (H / Kv)`` is the global
 one; that condition spans mesh dims, which a ``register_sharding`` rule (one
 mesh dim's strategies, expanded over the rest) cannot state, so the flash
 forward runs under ``local_map`` with the placements ``_flash_placements``
-picks. Its backward, the plain reference's VJP through autograd, cannot run
-inside a custom op and runs under ``local_map`` with the same placements.
-``local_map_calls`` counts each region's runs.
+(the sharding layer's ``attention_placements``) picks. Its backward, the
+plain reference's VJP through autograd, cannot run inside a custom op and
+runs under ``local_map`` with the same placements; its gradients come back
+contiguous, since DTensor plans the views that follow from global strides,
+which a permuted local gradient does not have. ``local_map_calls`` (the
+sharding layer's) counts each region's runs.
 """
-import collections
-import math
-
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map, register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.parallel.sharding import \
+    attention_placements as _flash_placements
+from repro_torch.parallel.sharding import local_map_calls
+
 from . import ref
+from .flash_attention import _check as _cuda_contract
 from .flash_attention import check_blocks, flash_attention_fwd
 from .rglru_scan import check_blocks as rglru_check_blocks
 from .rglru_scan import rglru_scan_bwd, rglru_scan_fwd
@@ -55,29 +60,13 @@ def _(q, k, v, causal, window):
 
 @_flash_kernel.register_fake
 def _(q, k, v, causal, window):
+    """On fake tensors the contract of the device's kernel: the CUDA
+    wrapper's on ``cuda``, the CPU path's block rule on ``cpu``."""
+    if q.device.type == "cuda":
+        _cuda_contract(q, k, v, causal, window)
+    else:
+        check_blocks(q.shape[1], k.shape[1])
     return torch.empty_like(q)
-
-
-# The regions run under ``local_map`` on DTensors, by name: one a call.
-local_map_calls = collections.Counter()
-
-
-def _flash_placements(q: DTensor, k: DTensor) -> tuple:
-    """Where attention computes DTensors: on each mesh dim, q's own shard
-    of batch or heads, else replicated. A dim keeps its shard only while
-    the product of the sizes sharding batch divides B, and of those sharding
-    heads divides both H and Kv."""
-    extent = {0: q.shape[0], 2: math.gcd(q.shape[2], k.shape[2])}
-    split = {0: 1, 2: 1}
-    out = []
-    for size, p in zip(q.device_mesh.shape, q.placements):
-        d = p.dim if isinstance(p, Shard) else None
-        if d in extent and extent[d] % (split[d] * size) == 0:
-            split[d] *= size
-            out.append(Shard(d))
-        else:
-            out.append(Replicate())
-    return tuple(out)
 
 
 def _check_device(name: str, x: torch.Tensor) -> None:
@@ -118,7 +107,7 @@ class _FlashAttention(torch.autograd.Function):
         if ctx.placements is not None:
             p = ctx.placements
             local_map_calls["flash_attention backward"] += 1
-            vjp = local_map(_flash_vjp, out_placements=(p, p, p),
+            vjp = local_map(_flash_vjp_dense, out_placements=(p, p, p),
                             in_placements=(p, p, p, p, None, None),
                             device_mesh=q.device_mesh,
                             redistribute_inputs=True)
@@ -133,6 +122,12 @@ def _flash_vjp(q, k, v, g, causal: bool, window: int):
         qkv = [x.detach().requires_grad_() for x in (q, k, v)]
         out = ref.flash_attention_ref(*qkv, causal=causal, window=window)
     return torch.autograd.grad(out, qkv, g)
+
+
+def _flash_vjp_dense(q, k, v, g, causal: bool, window: int):
+    """``_flash_vjp`` with each gradient contiguous."""
+    return tuple(x.contiguous()
+                 for x in _flash_vjp(q, k, v, g, causal, window))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -70,10 +70,13 @@ def make_grad_step(cfg: ModelConfig, mesh: Optional[DeviceMesh] = None,
 
 def make_prefill_step(cfg: ModelConfig, mesh: Optional[DeviceMesh] = None,
                       rules: Optional[ShardingRules] = None):
-    """(params, batch) -> logits: the inference forward, no gradient."""
+    """(params, batch) -> logits: the inference forward, no gradient.
+    On a mesh it runs under ``no_grad``: DTensor cannot take the views of
+    an inference tensor (``unbind`` sets a version counter)."""
+    no_grad = torch.no_grad if mesh is not None else torch.inference_mode
 
     def prefill_step(params, batch):
-        with use_mesh(mesh, rules), torch.inference_mode():
+        with use_mesh(mesh, rules), no_grad():
             logits, _ = transformer.forward(params, batch, cfg)
         return logits
 

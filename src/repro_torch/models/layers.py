@@ -23,9 +23,13 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.device import require_device
-from repro_torch.parallel.sharding import constant_like, role_size, shard
+from repro_torch.parallel.sharding import (attention_placements, constant_like,
+                                           einsum, local_map_calls, role_size,
+                                           shard, shard_over, write_slot)
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -101,7 +105,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     Rotates the split halves of D (not interleaved pairs), as JAX does.
     """
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)               # (D/2,)
+    # a DTensor's positions (a decode state's) meet the table as one
+    freqs = constant_like(rope_freqs(d, theta, x.device), positions)
     angles = positions[..., None].float() * freqs        # (..., S, D/2)
     angles = angles[..., None, :]                        # (..., S, 1, D/2)
     cos, sin = (constant_like(t, x) for t in (torch.cos(angles),
@@ -128,17 +133,17 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0) -> Params:
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
-    h = torch.einsum("...d,df->...f", x, p["wi"].to(dt))
+    h = einsum("...d,df->...f", x, p["wi"].to(dt))
     if cfg.mlp == "swiglu":
-        g = torch.einsum("...d,df->...f", x, p["wg"].to(dt))
+        g = einsum("...d,df->...f", x, p["wg"].to(dt))
         h = F.silu(g) * h
     elif cfg.mlp == "geglu":
-        g = torch.einsum("...d,df->...f", x, p["wg"].to(dt))
+        g = einsum("...d,df->...f", x, p["wg"].to(dt))
         h = F.gelu(g, approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
     h = shard(h, "act_ff")
-    return torch.einsum("...f,fd->...d", h, p["wo"].to(dt))
+    return einsum("...f,fd->...d", h, p["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -160,10 +165,15 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor):
+    """The projections. On a mesh the k/v weights are sliced over heads
+    where ``_shard_kv`` shards k and v over them: XLA carries that
+    constraint back into the products, DTensor does not."""
     dt = x.dtype
-    q = torch.einsum("...sd,dhk->...shk", x, p["wq"].to(dt))
-    k = torch.einsum("...sd,dhk->...shk", kv_src, p["wk"].to(dt))
-    v = torch.einsum("...sd,dhk->...shk", kv_src, p["wv"].to(dt))
+    q = einsum("...sd,dhk->...shk", x, p["wq"].to(dt))
+    k = einsum("...sd,dhk->...shk", kv_src,
+               shard_over(p["wk"].to(dt), 1, "tp"))
+    v = einsum("...sd,dhk->...shk", kv_src,
+               shard_over(p["wv"].to(dt), 1, "tp"))
     return q, k, v
 
 
@@ -188,7 +198,12 @@ def mha_logits_to_out(q, k, v, mask, cfg: Optional[ModelConfig],
 
     mask: broadcastable to (B, 1, S, T) boolean (True = attend) or None.
     ``softcap > 0`` caps the scores at ``softcap * tanh(logits / softcap)``.
+    On DTensors it runs on each rank's shards (``_attention_on_shards``).
     """
+    if isinstance(q, DTensor):
+        mask = None if mask is None else constant_like(mask, q)
+        return _attention_on_shards(
+            lambda *a: mha_logits_to_out(*a, cfg, softcap), q, k, v, mask)
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -212,13 +227,33 @@ def mha_logits_to_out(q, k, v, mask, cfg: Optional[ModelConfig],
     return out.reshape(b, s, h, d)
 
 
+def _attention_on_shards(fn, q, k, v, *extra):
+    """``fn(q, k, v, *extra)`` on DTensors, each rank on its shards of batch
+    and heads where they divide (``attention_placements``), with the
+    sequence and everything else whole: DTensor cannot split the heads
+    into (Kv, G) groups or flatten them with the batch for its ``bmm``
+    where they are sharded. ``extra``: replicated tensors (a mask) or
+    None."""
+    p = attention_placements(q, k)
+    whole = (Replicate(),) * q.device_mesh.ndim
+    local_map_calls["attention"] += 1
+    return local_map(
+        lambda *a: fn(*a).contiguous(), out_placements=list(p),
+        in_placements=(p, p, p, *(None if x is None else whole
+                                  for x in extra)),
+        device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v, *extra)
+
+
 def chunked_attention(q, k, v, cfg: ModelConfig, causal: bool = True,
                       window: int = 0) -> torch.Tensor:
     """Online-softmax attention over kv chunks (flash semantics, plain ops).
 
     Never materializes the full (S, T) score tensor: peak score memory is
-    (S, chunk).
+    (S, chunk). On DTensors it runs on each rank's shards.
     """
+    if isinstance(q, DTensor):
+        return _attention_on_shards(
+            lambda *a: chunked_attention(*a, cfg, causal, window), q, k, v)
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -288,7 +323,7 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 if causal else None)
         out = mha_logits_to_out(q, k, v, mask, cfg)
     out = shard(out, "act_heads")
-    return torch.einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
+    return einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
 
 
 def gate_output(p: Params, y: torch.Tensor) -> torch.Tensor:
@@ -306,7 +341,7 @@ def cross_attention_block(p: Params, x: torch.Tensor, enc: torch.Tensor,
     q, k, v = _qkv(p, x, enc)
     q, k, v = _shard_q(q), _shard_kv(k), _shard_kv(v)
     out = mha_logits_to_out(q, k, v, None, cfg)
-    y = torch.einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
+    y = einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
     return gate_output(p, y) if gated else y
 
 
@@ -350,9 +385,9 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     # dynamic_update_slice clamps its start
     slot = pos % s_cache if window > 0 else pos.clamp(max=s_cache - 1)
     index = slot.long().view(1)
-    cache_k.index_copy_(1, index, k.to(cache_k.dtype))
-    cache_v.index_copy_(1, index, v.to(cache_v.dtype))
-    idx = torch.arange(s_cache, device=x.device)
+    write_slot(cache_k, 1, index, k.to(cache_k.dtype))
+    write_slot(cache_v, 1, index, v.to(cache_v.dtype))
+    idx = constant_like(torch.arange(s_cache, device=x.device), pos)
     if window > 0:
         # ring buffer: slot i holds absolute position pos - ((slot - i) mod
         # S); valid iff that position exists (age < min(pos + 1, S)).
@@ -363,5 +398,5 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     ck, cv = shard(cache_k, "kv_cache"), shard(cache_v, "kv_cache")
     out = mha_logits_to_out(q, ck.to(q.dtype), cv.to(q.dtype),
                             valid[None, None, None, :], cfg)
-    y = torch.einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
+    y = einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
     return y, cache_k, cache_v

@@ -24,13 +24,16 @@ Two steps compute what the reference computes in another way:
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import (constant_like, einsum,
+                                           on_group_shards, shard)
 from .config import ModelConfig
 from .layers import Params, apply_mlp, dense_init, init_mlp
 
@@ -100,6 +103,16 @@ def assign_slots(gate_idx: torch.Tensor, gate_vals: torch.Tensor,
     return dispatch.view(shape), combine.view(shape)
 
 
+def _route(probs: torch.Tensor, k: int, num_experts: int, cap: int):
+    """(gate_vals, gate_idx, dispatch, combine) of router probabilities
+    (n, g, E): the top-k, its normalised gates, and their slots."""
+    gate_vals, gate_idx = top_k(probs, k)                    # (n, g, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    dispatch, combine = assign_slots(gate_idx, gate_vals, num_experts, cap)
+    return gate_vals, gate_idx, dispatch, combine
+
+
 def apply_moe(p: Params, x: torch.Tensor,
               cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (out, aux).
@@ -112,8 +125,7 @@ def apply_moe(p: Params, x: torch.Tensor,
     n_groups, g = group_split(b * s, m.group_size)
     xg = x.reshape(n_groups, g, d)
 
-    logits = torch.einsum("ngd,de->nge", xg,
-                          p["router"]["w"].to(x.dtype)).float()
+    logits = einsum("ngd,de->nge", xg, p["router"]["w"].to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
 
     # aux losses (computed over all tokens)
@@ -121,29 +133,29 @@ def apply_moe(p: Params, x: torch.Tensor,
     z_loss = m.router_z_coef * z.square().mean()
     me = probs.reshape(-1, m.num_experts).mean(0)
 
-    gate_vals, gate_idx = top_k(probs, m.top_k)              # (n, g, k)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
+    route = functools.partial(_route, k=m.top_k, num_experts=m.num_experts,
+                              cap=capacity(cfg, g))
+    if isinstance(probs, DTensor):
+        route = on_group_shards(route, probs, n_out=4)
+    gate_vals, gate_idx, dispatch, combine = route(probs)    # (n, g, k) ...
 
     # one-hot expert assignment per (token, k): (n, g, k, E)
-    assign = (gate_idx[..., None] == torch.arange(
-        m.num_experts, device=x.device)).float()
+    assign = (gate_idx[..., None] == constant_like(torch.arange(
+        m.num_experts, device=x.device), gate_idx)).float()
     ce = assign.sum(2).reshape(-1, m.num_experts).mean(0)
     aux_loss = m.aux_coef * m.num_experts * (me * ce).sum()
 
-    dispatch, combine = assign_slots(gate_idx, gate_vals, m.num_experts,
-                                     capacity(cfg, g))
     dt = x.dtype
     spec = "moe_ecd_grouped" if m.dispatch_local else "moe_ecd"
-    expert_in = torch.einsum("ngd,ngec->necd", xg, dispatch.to(dt))
+    expert_in = einsum("ngd,ngec->necd", xg, dispatch.to(dt))
     expert_in = shard(expert_in, spec)
     w = p["experts"]
-    h = torch.einsum("necd,edf->necf", expert_in, w["wi"].to(dt))
-    gte = torch.einsum("necd,edf->necf", expert_in, w["wg"].to(dt))
+    h = einsum("necd,edf->necf", expert_in, w["wi"].to(dt))
+    gte = einsum("necd,edf->necf", expert_in, w["wg"].to(dt))
     h = F.silu(gte) * h
-    eout = torch.einsum("necf,efd->necd", h, w["wo"].to(dt))
+    eout = einsum("necf,efd->necd", h, w["wo"].to(dt))
     eout = shard(eout, spec)
-    out = torch.einsum("necd,ngec->ngd", eout, combine.to(dt))
+    out = einsum("necd,ngec->ngd", eout, combine.to(dt))
 
     out = out.reshape(b, s, d)
     if "shared" in p:

@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import require_device
 from repro_torch.kernels.ref import rglru_scan_ref
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import einsum, shard
 from .config import ModelConfig
 from .layers import Params, _weak, dense_init
 
@@ -61,17 +61,17 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig) -> Params:
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """Exact softplus, as ``jax.nn.softplus`` (``F.softplus`` returns x
     above its threshold of 20)."""
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def _rglru_coeffs(p: Params, u: torch.Tensor):
     """u: (..., r) pre-activation inputs -> (a, b) recurrence coefficients,
     both fp32."""
     uf = u.float()
-    rgate = torch.sigmoid(torch.einsum("...r,rk->...k", uf,
-                                       p["rg_gates"]["wa"]))
-    igate = torch.sigmoid(torch.einsum("...r,rk->...k", uf,
-                                       p["rg_gates"]["wi"]))
+    rgate = torch.sigmoid(einsum("...r,rk->...k", uf,
+                                 p["rg_gates"]["wa"]))
+    igate = torch.sigmoid(einsum("...r,rk->...k", uf,
+                                 p["rg_gates"]["wi"]))
     log_a = -_RGLRU_C * _softplus(p["rg_lambda"]) * rgate
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -87,9 +87,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     Runs in x's dtype (the state is cast to it first): the W shifted
     products are added in order from 0."""
     width, s = w.shape[0], x.shape[-2]
-    if state is None:
-        pad = torch.zeros(x.shape[:-2] + (width - 1, x.shape[-1]),
-                          dtype=x.dtype, device=x.device)
+    if state is None:   # zeros laid out as x (a DTensor's shards too)
+        pad = torch.zeros_like(x[..., :width - 1, :])
     else:
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=-2)
@@ -99,8 +98,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d). Zero initial state."""
     dt = x.dtype
-    u = torch.einsum("...d,dr->...r", x, p["rg_in"]["wx"].to(dt))
-    gate = F.gelu(torch.einsum("...d,dr->...r", x, p["rg_in"]["wy"].to(dt)),
+    u = einsum("...d,dr->...r", x, p["rg_in"]["wx"].to(dt))
+    gate = F.gelu(einsum("...d,dr->...r", x, p["rg_in"]["wy"].to(dt)),
                   approximate="tanh")
     u = _causal_conv(u, p["conv"])
     u = shard(u, "act_rnn")
@@ -112,7 +111,7 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = rglru_scan_ref(a, b)
     h = h.to(dt) * gate
     h = shard(h, "act_rnn")
-    return torch.einsum("...r,rd->...d", h, p["rg_out"]["wo"].to(dt))
+    return einsum("...r,rd->...d", h, p["rg_out"]["wo"].to(dt))
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, device="cuda") -> Params:
@@ -132,15 +131,15 @@ def step_rglru(p: Params, x: torch.Tensor, state: Params,
     Returns ``(out, new_state)``; the carry ``h`` stays fp32 and the conv
     state keeps the fp32 inputs."""
     dt = x.dtype
-    u = torch.einsum("...d,dr->...r", x, p["rg_in"]["wx"].to(dt))
-    gate = F.gelu(torch.einsum("...d,dr->...r", x, p["rg_in"]["wy"].to(dt)),
+    u = einsum("...d,dr->...r", x, p["rg_in"]["wx"].to(dt))
+    gate = F.gelu(einsum("...d,dr->...r", x, p["rg_in"]["wy"].to(dt)),
                   approximate="tanh")
     u_seq = _causal_conv(u, p["conv"], state=state["conv"])
     new_conv = torch.cat([state["conv"][:, 1:], u.float()], dim=1)
     a, b = _rglru_coeffs(p, u_seq)
     h = a[:, 0] * state["h"] + b[:, 0]                    # (B, R)
     y = h[:, None].to(dt) * gate
-    out = torch.einsum("...r,rd->...d", y, p["rg_out"]["wo"].to(dt))
+    out = einsum("...r,rd->...d", y, p["rg_out"]["wo"].to(dt))
     return out, {"h": h, "conv": new_conv}
 
 
@@ -169,7 +168,7 @@ def _slstm_cell(gx, h_prev, c_prev, n_prev, m_prev, wh):
 
     gx: (B, 4, nh, hd) input contribution, fp32; states: (B, nh, hd), fp32;
     wh: (nh, hd, 4, hd), fp32 (the recurrent product stays fp32)."""
-    gr = torch.einsum("bhk,hkgl->bghl", h_prev, wh)  # recurrent contribution
+    gr = einsum("bhk,hkgl->bghl", h_prev, wh)  # recurrent contribution
     g = (gx + gr).float()
     i_t, f_t, z_t, o_t = g.unbind(1)
     m_t = torch.maximum(f_t + m_prev, i_t)
@@ -214,7 +213,7 @@ def apply_slstm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     nh = cfg.n_heads
     hd = d // nh
     dt = x.dtype
-    gx = torch.einsum("bsd,dghl->bsghl", x, p["lstm_wx"].to(dt))
+    gx = einsum("bsd,dghl->bsghl", x, p["lstm_wx"].to(dt))
     gx = gx.float() + p["lstm_b"]
     zeros = x.new_zeros((b, nh, hd), dtype=torch.float32)
     m0 = torch.full_like(zeros, _M0)
@@ -227,7 +226,7 @@ def apply_slstm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     _, hs = _chunked_time_scan(scan_fn, (zeros, zeros, zeros, m0), (gx,), s,
                                cfg.time_chunk)
     hs = hs.reshape(b, s, d).to(dt)
-    return torch.einsum("...d,dk->...k", hs, p["rg_out"]["wo"].to(dt))
+    return einsum("...d,dk->...k", hs, p["rg_out"]["wo"].to(dt))
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device="cuda") -> Params:
@@ -248,12 +247,12 @@ def step_slstm(p: Params, x: torch.Tensor, state: Params,
     """x: (B, 1, d); state: {h, c, n, m}, each (B, nh, hd) fp32."""
     b = x.shape[0]
     dt = x.dtype
-    gx = torch.einsum("bsd,dghl->bsghl", x, p["lstm_wx"].to(dt))
+    gx = einsum("bsd,dghl->bsghl", x, p["lstm_wx"].to(dt))
     gx = gx[:, 0].float() + p["lstm_b"]
     h, c, n, m = _slstm_cell(gx, state["h"], state["c"], state["n"],
                              state["m"], p["lstm_wh"])
     y = h.reshape(b, 1, -1).to(dt)
-    out = torch.einsum("...d,dk->...k", y, p["rg_out"]["wo"].to(dt))
+    out = einsum("...d,dk->...k", y, p["rg_out"]["wo"].to(dt))
     return out, {"h": h, "c": c, "n": n, "m": m}
 
 
@@ -280,13 +279,13 @@ def _mlstm_gates(p: Params, x: torch.Tensor):
     """x: (B, S, d) -> q, k, v (B, S, nh, hd) and the output gate (B, S, d)
     in x's dtype; the log input and forget gates (B, S, nh) in fp32."""
     dt = x.dtype
-    qkv = torch.einsum("bsd,dghl->bsghl", x, p["lstm_wqkv"].to(dt))
+    qkv = einsum("bsd,dghl->bsghl", x, p["lstm_wqkv"].to(dt))
     q, k, v = qkv.unbind(2)                              # (B,S,nh,hd)
-    iflog = torch.einsum("bsd,dgh->bsgh", x, p["lstm_wif"].to(dt))
+    iflog = einsum("bsd,dgh->bsgh", x, p["lstm_wif"].to(dt))
     iflog = iflog.float() + p["lstm_bif"]
     i_t, f_t = iflog.unbind(2)                           # (B,S,nh)
     f_t = -_softplus(-f_t)                               # logsigmoid
-    og = torch.sigmoid(torch.einsum("bsd,dk->bsk", x, p["lstm_wog"].to(dt)))
+    og = torch.sigmoid(einsum("bsd,dk->bsk", x, p["lstm_wog"].to(dt)))
     hd = q.shape[-1]
     k = k / _weak(math.sqrt(hd), dt)
     return q, k, v, i_t, f_t, og
@@ -302,8 +301,8 @@ def _mlstm_cell(C, n, m, qt, kt, vt, it, ft):
     C = f_p[..., None] * C + i_p[..., None] * \
         (vt[..., :, None] * kt[..., None, :])            # v k^T
     n = f_p * n + i_p * kt
-    num = torch.einsum("bhkl,bhl->bhk", C, qt)
-    den = torch.abs(torch.einsum("bhl,bhl->bh", n, qt))
+    num = einsum("bhkl,bhl->bhk", C, qt)
+    den = torch.abs(einsum("bhl,bhl->bh", n, qt))
     den = torch.maximum(den, den.new_ones(()))[..., None]
     return C, n, m_t, num / den
 
@@ -326,7 +325,7 @@ def apply_mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xs = (q.float(), k.float(), v.float(), i_t, f_t)
     _, hs = _chunked_time_scan(scan_fn, (C0, n0, m0), xs, s, cfg.time_chunk)
     hs = hs.reshape(b, s, d).to(dt) * og.to(dt)          # (B,S,d)
-    return torch.einsum("...d,dk->...k", hs, p["rg_out"]["wo"].to(dt))
+    return einsum("...d,dk->...k", hs, p["rg_out"]["wo"].to(dt))
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device="cuda") -> Params:
@@ -352,5 +351,5 @@ def step_mlstm(p: Params, x: torch.Tensor, state: Params,
     C, n, m, h = _mlstm_cell(state["C"], state["n"], state["m"], qt, kt, vt,
                              i_t[:, 0], f_t[:, 0])
     h = h.reshape(b, 1, d).to(dt) * og.to(dt)
-    out = torch.einsum("...d,dk->...k", h, p["rg_out"]["wo"].to(dt))
+    out = einsum("...d,dk->...k", h, p["rg_out"]["wo"].to(dt))
     return out, {"C": C, "n": n, "m": m}

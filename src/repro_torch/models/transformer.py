@@ -35,10 +35,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import require_device
-from repro_torch.parallel.sharding import (constant_like, reduce_partials,
+from repro_torch.parallel.sharding import (constant_like, einsum,
+                                           local_map_calls, reduce_partials,
                                            replicate_dim, shard)
 from repro_torch.tree import leaves, tree_map
 from . import recurrent as rec
@@ -402,7 +405,7 @@ def forward(params: Params, batch: Batch,
     x = apply_norm(params["final_norm"], x, cfg)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"])
-    logits = torch.einsum("bsd,dv->bsv", x, head.to(dt))
+    logits = einsum("bsd,dv->bsv", x, head.to(dt))
     if cfg.logits_softcap > 0:
         logits = _weak(cfg.logits_softcap, dt) * torch.tanh(
             logits.float() / cfg.logits_softcap).to(dt)
@@ -422,16 +425,61 @@ def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.where(valid, logits, neg)
 
 
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim (finite inputs), in ops that
+    keep a DTensor's shards of that dim (DTensor gathers them whole for
+    ``logsumexp``): the same ops in the same order, and its backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.amax(-1, keepdim=True)
+        out = (torch.log(torch.exp(x - m).sum(-1, keepdim=True)) + m)[..., 0]
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g[..., None] * (x - out[..., None]).exp()
+
+
+def _label_logit_on_shards(logits: DTensor, labels) -> DTensor:
+    """The label's logit (B, S, 1) of vocab-sharded logits (B, S, V): a
+    one-hot sum on each rank's vocab shard, a partial sum over the ranks
+    that split the vocab. DTensor backs ``gather``'s gradient with zeros
+    of the global logits' shape on every rank, and torch 2.11 widens a
+    sliced one-hot to the whole vocab."""
+    vocab_dim = Shard(logits.ndim - 1)
+    mesh, placements = logits.device_mesh, logits.placements
+    ids = constant_like(torch.arange(logits.shape[-1],
+                                     device=logits.device), logits)
+    def local(x, y, v):
+        return (x * (y[..., None].long() == v)).sum(-1, keepdim=True)
+
+    local_map_calls["label logit"] += 1
+    return local_map(
+        local, out_placements=[Partial() if p == vocab_dim else p
+                               for p in placements],
+        in_placements=(placements,
+                       [Replicate() if p == vocab_dim else p
+                        for p in placements],
+                       [Shard(0) if p == vocab_dim else Replicate()
+                        for p in placements]),
+        device_mesh=mesh, redistribute_inputs=True)(logits, labels, ids)
+
+
 def loss_fn(params: Params, batch: Batch,
             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     logits, aux = forward(params, batch, cfg)
     labels = batch["labels"]
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    # the gathered logit keeps its trailing axis until it meets logz: over
-    # a vocab-sharded DTensor it is a masked partial sum, whose reduction
-    # needs the mask's own rank
-    label_logit = torch.gather(logits, -1, labels[..., None].long())
+    if isinstance(logits, DTensor):
+        logz = _LogSumExp.apply(logits)
+        label_logit = _label_logit_on_shards(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        # the gathered logit keeps its trailing axis until it meets logz
+        label_logit = torch.gather(logits, -1, labels[..., None].long())
     mask: Optional[torch.Tensor] = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(labels, dtype=torch.float32)
@@ -503,8 +551,8 @@ def precompute_cross_kv(params: Params, state: Params, enc: torch.Tensor,
     ``enc``."""
     def fill(ap: Params, st: Params) -> None:
         for name, w in (("xk", ap["wk"]), ("xv", ap["wv"])):
-            st[name].copy_(torch.einsum("btd,dhk->bthk", enc,
-                                        w.to(enc.dtype)))
+            st[name].copy_(einsum("btd,dhk->bthk", enc,
+                                  w.to(enc.dtype)))
 
     for key, st in state.get("scan", {}).items():
         if "xk" in st:
@@ -530,11 +578,11 @@ def _step_block(kind: str, p: Params, x: torch.Tensor, st: Params,
         # attention over the cached encoder K/V, no mask
         ap = p["xattn"]
         h = apply_norm(p["norm_x" if kind == "encdec" else "norm1"], x, cfg)
-        q = torch.einsum("...sd,dhk->...shk", h, ap["wq"].to(x.dtype))
+        q = einsum("...sd,dhk->...shk", h, ap["wq"].to(x.dtype))
         o = mha_logits_to_out(q, st["xk"].to(x.dtype), st["xv"].to(x.dtype),
                               None, cfg)
-        x = x + gate_output(ap, torch.einsum("...shk,hkd->...sd", o,
-                                             ap["wo"].to(x.dtype)))
+        x = x + gate_output(ap, einsum("...shk,hkd->...sd", o,
+                                       ap["wo"].to(x.dtype)))
     if kind in _RECURRENT:
         y, s2 = getattr(rec, f"step_{kind}")(
             p[kind], apply_norm(p["norm1"], x, cfg), st, cfg)
@@ -580,7 +628,7 @@ def serve_step(params: Params, state: Params, token: torch.Tensor,
 
     x = apply_norm(params["final_norm"], x, cfg)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    logits = torch.einsum("bsd,dv->bsv", x, head.to(dt))[:, 0]
+    logits = einsum("bsd,dv->bsv", x, head.to(dt))[:, 0]
     if cfg.logits_softcap > 0:
         logits = _weak(cfg.logits_softcap, dt) * torch.tanh(
             logits.float() / cfg.logits_softcap).to(dt)

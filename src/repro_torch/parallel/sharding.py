@@ -22,20 +22,28 @@ placements and passes a plain tensor through; ``distribute`` is the port's
 """
 from __future__ import annotations
 
+import collections
 import math
 import re
-import threading
+import types
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
-                                      distribute_tensor)
+from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate,
+                                      Shard, distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.tree import tree_map
 
-_ctx = threading.local()
+# The mesh context is the process's, not a thread's (the reference keeps a
+# thread's): on CUDA the autograd engine runs the backward, and with it
+# each remat group's recompute, on a thread of its own.
+_ctx = types.SimpleNamespace(current=None)
+
+# The regions run under ``local_map`` on DTensors, by name: one a call.
+local_map_calls = collections.Counter()
 
 Spec = Tuple[Optional[Tuple[str, ...]], ...]
 
@@ -174,7 +182,7 @@ def use_mesh(mesh: Optional[DeviceMesh],
 
 
 def current_mesh() -> Optional[MeshContext]:
-    return getattr(_ctx, "current", None)
+    return _ctx.current
 
 
 def _spec_for(name: str, ndim: int, mc: MeshContext) -> Optional[Spec]:
@@ -214,12 +222,33 @@ def shard(x, name: str):
     return x.redistribute(mc.mesh, _placements(mc.mesh, spec))
 
 
+def shard_over(x, dim: int, role: str):
+    """``x`` with tensor dim ``dim`` sharded over ``role``'s mesh axes: a
+    DTensor replicated there is sliced (no data moves). Anything else, a
+    dim that does not divide, or a mesh axis already in use passes
+    through."""
+    mc = current_mesh()
+    if mc is None or not isinstance(x, DTensor):
+        return x
+    axes = mc.rules.resolve(role, mc.mesh)
+    if not axes or x.shape[dim] % axes_size(mc.mesh, axes):
+        return x
+    placements = list(x.placements)
+    for a in axes:
+        i = list(mc.mesh.mesh_dim_names).index(a)
+        if not isinstance(placements[i], Replicate):
+            return x
+        placements[i] = Shard(dim)
+    return x.redistribute(mc.mesh, placements)
+
+
 def constant_like(t: torch.Tensor, ref):
     """A constant ``t`` (positions, masks, RoPE tables: the same on every
     rank, no gradient) as a replicated DTensor on ``ref``'s mesh when
-    ``ref`` is a DTensor, so that the two may meet in one op; else ``t``.
-    The reference's constants are replicated arrays."""
-    if not isinstance(ref, DTensor):
+    ``ref`` is a DTensor, so that the two may meet in one op; else ``t``
+    (a DTensor already included). The reference's constants are replicated
+    arrays."""
+    if not isinstance(ref, DTensor) or isinstance(t, DTensor):
         return t
     mesh = ref.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
@@ -249,6 +278,127 @@ def replicate_dim(x, dim: int):
         return x
     return x.redistribute(x.device_mesh, [
         Replicate() if p == Shard(dim) else p for p in x.placements])
+
+
+def write_slot(cache: torch.Tensor, dim: int, index: torch.Tensor,
+               row: torch.Tensor) -> torch.Tensor:
+    """``cache.index_copy_(dim, index, row)`` for a one-element ``index``:
+    ``row`` (size 1 on ``dim``) written in place at ``index``. A DTensor
+    cache sharded on ``dim`` is written shard by shard: the rank whose
+    shard holds the slot writes it, the others rewrite what they hold.
+    DTensor's own ``index_copy_`` there would write into a replicated copy
+    and relabel the cache as replicated over its unchanged shard."""
+    if not isinstance(cache, DTensor) or Shard(dim) not in cache.placements:
+        return cache.index_copy_(dim, index, row)
+    mesh, placements = cache.device_mesh, cache.placements
+    row = row.redistribute(mesh, [Replicate() if p == Shard(dim) else p
+                                  for p in placements]).to_local()
+    index = index.full_tensor() if isinstance(index, DTensor) else index
+    local = cache.to_local()
+    n, offset = local.shape[dim], 0
+    for size, coord, p in zip(mesh.shape, mesh.get_coordinate(), placements):
+        if p == Shard(dim):    # shards nest in mesh-dim order, evenly
+            offset = offset * size + coord
+    at = index - offset * n
+    here = ((at >= 0) & (at < n)).view(*[1] * row.dim())
+    at = at.clamp(0, n - 1)
+    local.index_copy_(dim, at, torch.where(here, row,
+                                           local.index_select(dim, at)))
+    return cache
+
+
+def attention_placements(q: DTensor, k: DTensor) -> tuple:
+    """Where attention computes DTensors: on each mesh dim, q's own shard
+    of batch or heads, else replicated. A dim keeps its shard only while
+    the product of the sizes sharding batch divides B, and of those sharding
+    heads divides both H and Kv."""
+    extent = {0: q.shape[0], 2: math.gcd(q.shape[2], k.shape[2])}
+    split = {0: 1, 2: 1}
+    out = []
+    for size, p in zip(q.device_mesh.shape, q.placements):
+        d = p.dim if isinstance(p, Shard) else None
+        if d in extent and extent[d] % (split[d] * size) == 0:
+            split[d] *= size
+            out.append(Shard(d))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def on_group_shards(fn, x: DTensor, n_out: int):
+    """``fn`` of a DTensor ``x`` whose dim 0 indexes independent groups
+    (MoE routing), run by each rank on its own groups: ``x`` keeps its
+    dim-0 shards where they divide and is whole elsewhere, and ``fn``'s
+    ``n_out`` outputs come back laid out so. DTensor cannot flatten the
+    sharded dims that the routing's reshapes meet."""
+    split, placements = 1, []
+    for size, p in zip(x.device_mesh.shape, x.placements):
+        keep = p == Shard(0) and x.shape[0] % (split * size) == 0
+        split *= size if keep else 1
+        placements.append(Shard(0) if keep else Replicate())
+    local_map_calls["group shards"] += 1
+    return local_map(fn, out_placements=(placements,) * n_out,
+                     in_placements=(placements,),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)
+
+
+def _letters(eq: str, ndims) -> Tuple[List[str], str]:
+    """``eq``'s operand and output subscripts with every ``...`` spelled
+    out in capitals (broadcast dims align on the right, as in einsum)."""
+    lhs, out = eq.replace(" ", "").split("->")
+    ins = lhs.split(",")
+    k = [n - len(t.replace("...", "")) for t, n in zip(ins, ndims)]
+    ell = "".join(chr(ord("A") + i) for i in range(max(k)))
+    return ([t.replace("...", ell[len(ell) - j:]) for t, j in zip(ins, k)],
+            out.replace("...", ell))
+
+
+def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum``; over DTensors each rank runs it on its own shards.
+
+    DTensor lowers an einsum to views around a ``bmm`` and cannot flatten
+    or split a sharded dim there (torch 2.11 refuses; torch 2.13 shards
+    strided). Here the layout is chosen per mesh dim, as XLA's SPMD
+    partitioner chooses it, and the local einsum runs under ``local_map``:
+    the first subscript that an operand shards and the output keeps is
+    kept (operands without it are gathered there, which is the FSDP
+    all-gather of a weight), else a contracted subscript that an operand
+    shards gives a partial sum. The gradient of an operand without the
+    kept subscript is a partial sum over that mesh dim."""
+    if not any(isinstance(o, DTensor) for o in operands):
+        return torch.einsum(eq, *operands)
+    ref = next(o for o in operands if isinstance(o, DTensor))
+    mesh = ref.device_mesh
+    operands = [reduce_partials(constant_like(o, ref)) for o in operands]
+    ins, out = _letters(eq, [o.ndim for o in operands])
+    size = {c: d for t, o in zip(ins, operands) for c, d in zip(t, o.shape)}
+    split = dict.fromkeys(size, 1)
+    whole = Replicate()
+    in_pl = [[whole] * mesh.ndim for _ in operands]
+    grad_pl = [[whole] * mesh.ndim for _ in operands]
+    out_pl: List[Placement] = [whole] * mesh.ndim
+    for m, n in enumerate(mesh.shape):
+        held = [t[o.placements[m].dim] for t, o in zip(ins, operands)
+                if isinstance(o.placements[m], Shard)]
+        ok = [c for c in held if size[c] % (split[c] * n) == 0]
+        keep = [c for c in ok if c in out] or ok
+        if not keep:
+            continue
+        c = keep[0]
+        split[c] *= n
+        out_pl[m] = Shard(out.index(c)) if c in out else Partial()
+        for i, t in enumerate(ins):
+            in_pl[i][m] = Shard(t.index(c)) if c in t else whole
+            grad_pl[i][m] = in_pl[i][m] if c in t else Partial()
+
+    def local(*xs):
+        return torch.einsum(eq, *xs).contiguous()
+
+    local_map_calls["einsum"] += 1
+    return local_map(local, out_placements=out_pl,
+                     in_placements=[tuple(p) for p in in_pl],
+                     in_grad_placements=[tuple(p) for p in grad_pl],
+                     device_mesh=mesh, redistribute_inputs=True)(*operands)
 
 
 # ---------------------------------------------------------------------------

@@ -66,3 +66,29 @@ def test_no_import_statement_names_jax_or_repro():
             for m in mods:
                 top = m.split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro"), (path, m)
+
+
+DRYRUN_PROBE = """
+import importlib, pkgutil, sys
+import torch
+import torch.distributed as dist
+import repro_torch
+names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")}
+import repro_torch.core.comm_count, repro_torch.launch.dryrun
+print(sorted({"repro_torch.launch.dryrun", "repro_torch.core.comm_count"}
+             - names), dist.is_initialized(), torch.cuda.is_initialized(),
+      "torch.testing._internal.distributed.fake_pg" in sys.modules,
+      sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro")))
+"""
+
+
+def test_importing_the_dry_run_touches_no_device_and_no_process_group():
+    """The dry-run and the collective counter are in the walk above (so
+    they load no JAX), and importing them initialises no process group,
+    no CUDA and no fake process group."""
+    out = subprocess.run([sys.executable, "-c", DRYRUN_PROBE], cwd=SRC,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False False False []", out.stdout
