@@ -222,7 +222,26 @@ for each source, all started together), then
           device, collective wire bytes by kind, the three roofline terms
           under the H100 SXM5 constants, the bottleneck, ``mfu_bound`` and
           the trace's seconds; each train cell's ``useful_flops_ratio`` at
-          most 1.
+          most 1; and xlstm-350m ``train_4k`` on 16 x 16, whose sLSTM /
+          mLSTM time loop is traced at S = 16 and 32 and extrapolated to
+          4096 (its record's ``extrapolated`` key printed);
+ 14. the paper's PS-cluster pipeline (``core/predictor.py``, the cluster
+     emulator, the DES; host Python, no tensor work) on the card machine's
+     own Python and torch, its times host seconds:
+       a. the reference test's saturated case (alexnet, batch 16,
+          ``private_cpu``, profile 40, sim 250, W = 6, measured over 120
+          steps): the DES's error under 0.12 and under the larger of the
+          Lin and Cynthia baselines' errors; ``predict_many`` at W = 1, 2,
+          4 through the process pool equal bit for bit to its serial run
+          (``REPRO_SWEEP_SERIAL=1``);
+       b. ``python -m repro_torch.launch.whatif --ps-cluster`` (alexnet,
+          batch 8, W = 2 and 4, 2 PS shards behind a 4x oversubscribed
+          rack, sync with one backup worker, crash churn, profile 10 and
+          sim 60 steps, a Chrome trace exported, ``REPRO_SWEEP_SERIAL=1``)
+          as a subprocess, its ledger at ``REPRO_LEDGER`` (both in
+          ``build/phase14/``, removed at the end): exit 0, the trace
+          valid by ``obs.view.validate_chrome_trace``, the ledger read back
+          by ``obs.report.summarize``.
 
 Each result is printed as it comes; the line before the card's name is one
 JSON object with the kernels, and the last line is
@@ -331,6 +350,24 @@ XATTN_SMOKE_SEQ = 64                    # 11a: the smoke models, card vs CPU
 # phase 12's NCCL store and checkpoint, inside the checkout (``build/`` is
 # ignored by git); removed when the phase ends, passed or failed
 PHASE12_DIR = ROOT / "build" / "phase12"
+# phase 14b's trace and ledger, removed when the phase ends
+PHASE14_DIR = ROOT / "build" / "phase14"
+# 14a: the reference test's saturated case (tests/test_paper_system.py,
+# TestBaselinesWorse) and its gates
+PAPER_CASE = dict(dnn="alexnet", batch_size=16, platform="private_cpu",
+                  profile_steps=40, sim_steps=250)
+PAPER_W, PAPER_MEASURE_STEPS, PAPER_ERR = 6, 120, 0.12
+PAPER_SWEEP_W = [1, 2, 4]
+# 14b: the what-if's PS-cluster mode, its flags the reference's (W = 1
+# is left out: one backup worker of one leaves a sync barrier no quorum,
+# which the reference refuses too). Profile and simulation steps are the
+# reference tests' smallest: at the defaults (30, 250) the phase took
+# 114.5 s on a slow host (PR 23 call 1) against 34 s on a quiet one
+WHATIF_ARGV = ["--ps-cluster", "--dnn", "alexnet", "--batch", "8",
+               "--workers", "2", "4", "--num-ps", "2", "--oversub", "4",
+               "--sync-mode", "sync", "--backup-workers", "1", "--mttf",
+               "60", "--mttr", "5", "--fault-seed", "1", "--profile-steps",
+               "10", "--sim-steps", "60"]
 MESH_LOSS_TOL = 1e-5    # 12a: the DTensor path's losses against phase 3's
 DRYRUN_FLOP_TOL = 1e-9  # 13a: traced FLOPs against the real step's
 DRYRUN_PEAK_TOL = 0.10  # 13a: traced peak bytes against 12a's measured one
@@ -338,7 +375,9 @@ DRYRUN_CELLS = [        # 13b: (arch, shape, multi_pod)
     ("gemma-7b", "train_4k", False), ("gemma-7b", "prefill_32k", False),
     ("gemma-7b", "decode_32k", False), ("gemma-7b", "train_4k", True),
     ("arctic-480b", "train_4k", False),
-    ("llama-3.2-vision-90b", "train_4k", False)]
+    ("llama-3.2-vision-90b", "train_4k", False),
+    # the sLSTM / mLSTM time loop: traced at S = 16 and 32, extrapolated
+    (XLSTM, "train_4k", False)]
 COMM_KINDS = (("all_gather", "all-gather"), ("reduce_scatter",
               "reduce-scatter"), ("all_reduce", "all-reduce"),
               ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"))
@@ -758,6 +797,12 @@ def main() -> int:
     # -- phase 13: the dry-run on fake cuda tensors --------------------------
     mark("13a")
     dryrun_phase(gemma, counted)
+
+    # -- phase 14: the paper's PS-cluster pipeline on the host ---------------
+    mark("14a")
+    paper_phase(card)
+    mark("14b")
+    whatif_phase(card)
 
     flash_launches = {"train gemma-7b 4 layers x 5 steps":
                       gemma["launches"]["flash_attention"],
@@ -2501,11 +2546,103 @@ def dryrun_phase(gemma: dict, real: dict) -> None:
               f"{r['t_memory_s'] * 1e3:.2f} ms, t_collective "
               f"{r['t_collective_s'] * 1e3:.2f} ms, bound {r['bottleneck']}, "
               f"mfu_bound {r['mfu_bound']:.4f}, useful_flops_ratio "
-              f"{r['useful_flops_ratio']:.4f}; trace {rec['lower_s']:.1f} s",
-              flush=True)
+              f"{r['useful_flops_ratio']:.4f}; trace {rec['lower_s']:.1f} s"
+              + (f"; extrapolated {rec['extrapolated']}"
+                 if "extrapolated" in rec else ""), flush=True)
+        require(("extrapolated" in rec) == (arch == XLSTM),
+                f"{head}: extrapolated where it should not be, or not "
+                f"where it should")
         if rec["kind"] == "train":
             require(r["useful_flops_ratio"] <= 1,
                     f"{head}: more useful FLOPs than counted ones")
+
+
+def paper_phase(card: str) -> None:
+    """14a: profile, preprocess, predict and measure (``PredictionRun``)
+    at the reference test's saturated case, against the Lin and Cynthia
+    baselines; then ``predict_many``'s pool against its serial run."""
+    from repro_torch.core.predictor import PredictionRun, prediction_error
+    from repro_torch.core.sweep import predict_many
+    t0 = time.time()
+    run = PredictionRun(**PAPER_CASE).prepare()
+    t_prep = time.time() - t0
+    meas = run.measure(PAPER_W, steps=PAPER_MEASURE_STEPS)
+    pred = run.predict(PAPER_W)
+    errs = {"des": prediction_error(pred, meas)}
+    for method in ("lin", "cynthia"):
+        errs[method] = prediction_error(
+            run.predict_baseline(PAPER_W, method), meas)
+    t_all = time.time() - t0
+    print(f"14a {PAPER_CASE['dnn']} batch {PAPER_CASE['batch_size']} on "
+          f"{PAPER_CASE['platform']}, W = {PAPER_W}: measured {meas!r} ex/s, "
+          f"DES {pred!r} ex/s; errors DES {errs['des']:.4f} (bound "
+          f"{PAPER_ERR}), Lin {errs['lin']:.4f}, Cynthia "
+          f"{errs['cynthia']:.4f}; host seconds: profile and calibration "
+          f"{t_prep:.2f}, all {t_all:.2f} (host time; card {card})",
+          flush=True)
+    require(errs["des"] < PAPER_ERR, "14a: the DES's error is over its bound")
+    require(errs["des"] < max(errs["lin"], errs["cynthia"]),
+            "14a: the DES does not beat the baselines at saturation")
+    t0 = time.time()
+    parallel = predict_many(run, PAPER_SWEEP_W)
+    t_par = time.time() - t0
+    os.environ["REPRO_SWEEP_SERIAL"] = "1"
+    try:
+        t0 = time.time()
+        serial = predict_many(run, PAPER_SWEEP_W)
+        t_ser = time.time() - t0
+    finally:
+        del os.environ["REPRO_SWEEP_SERIAL"]
+    print(f"14a predict_many W = {PAPER_SWEEP_W}: pool {parallel}, serial "
+          f"{serial}, bit-equal {parallel == serial}; host seconds pool "
+          f"{t_par:.2f}, serial {t_ser:.2f} (host time; card {card})",
+          flush=True)
+    require(parallel == serial, "14a: the pool's predictions differ from "
+            "the serial run's")
+
+
+def whatif_phase(card: str) -> None:
+    """14b: the what-if's PS-cluster mode as a user runs it, with a trace
+    exported and the run ledger on; the trace validated and the ledger
+    read back."""
+    from repro_torch.obs import ledger, report
+    from repro_torch.obs.view import summarize, validate_chrome_trace
+    PHASE14_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        trace, led = PHASE14_DIR / "t.json", PHASE14_DIR / "l.jsonl"
+        # serial: the pool's workers would each re-import the what-if's
+        # module, and with it torch (about 50 s of host time in PR 23 call
+        # 2); 14a holds the pool against the serial run
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "REPRO_LEDGER": str(led), "REPRO_SWEEP_SERIAL": "1"}
+        t0 = time.time()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.whatif",
+             *WHATIF_ARGV, "--export-trace", str(trace)], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.time() - t0
+        for line in out.stdout.splitlines():
+            print(f"14b | {line}")
+        if out.returncode:
+            print(out.stderr[-4000:], flush=True)
+        require(out.returncode == 0,
+                f"14b: the what-if exited {out.returncode}")
+        with open(trace) as f:
+            doc = json.load(f)
+        problems = validate_chrome_trace(doc)
+        records = ledger.read(str(led))
+        summary = report.summarize(records)
+        print(f"14b what-if --ps-cluster: exit 0 in {seconds:.2f} host "
+              f"seconds (host time; card {card}); trace "
+              f"{summarize(doc)['events']} events, problems {problems}; "
+              f"ledger {[r['kind'] for r in records]}, report {summary}",
+              flush=True)
+        require(not problems, "14b: the exported trace is not valid")
+        require(list(summary) == ["whatif_ps"]
+                and summary["whatif_ps"]["runs"] == 1,
+                "14b: the ledger does not hold the what-if's record")
+    finally:
+        shutil.rmtree(PHASE14_DIR, ignore_errors=True)
 
 
 def mesh_train_phase(gemma: dict, mesh, counters) -> dict:

@@ -371,12 +371,14 @@ class Trace:
 
     def to_chrome_trace(self, templates=None,
                         trace_name: str = "repro") -> dict:
-        """This trace as a Chrome trace-event dict (Perfetto).  The
-        exporter (``obs/trace_export.py``) is not ported yet, so this
-        raises."""
-        raise NotImplementedError(
-            "Trace.to_chrome_trace needs obs/trace_export.py, which is not "
-            "ported yet: ROADMAP 1.16")
+        """This trace as a Chrome trace-event dict (Perfetto /
+        ``chrome://tracing``).  Pass the run's step templates to get
+        exact dependency flow arrows; see :mod:`repro_torch.obs.trace_export`.
+        Requires a ``record_trace=True`` run (otherwise there are no
+        records to lay out)."""
+        from repro_torch.obs.trace_export import to_chrome_trace
+        return to_chrome_trace(self, templates=templates,
+                               trace_name=trace_name)
 
     def recovery_times(self) -> List[float]:
         """Per-incident recovery time (t_up - t_down), worker churn and PS

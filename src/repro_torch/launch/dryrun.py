@@ -24,6 +24,13 @@ its largest per-op totals (``kind``
 ``dot`` for an op with FLOPs, a collective's kind, else ``op``; ``mult`` is
 always 1: nothing is counted once for many trips).
 
+The sLSTM / mLSTM time loop (``models/recurrent.py::_chunked_time_scan``)
+is a Python loop, so a trace unrolls every step of it: xlstm-350m's
+``train_4k`` and ``prefill_32k`` would take hours. Such a cell is traced at
+two short lengths (``FIT_SEQ``) and every count is extrapolated linearly to
+its S, as XLA counts a ``while`` body once and multiplies it by its trip
+count; the record says so under ``extrapolated``.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-7b \
         --shape train_4k [--multi-pod] [--device cpu] [--out results.json]
@@ -33,10 +40,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import time
 import traceback
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -45,6 +53,7 @@ from repro_torch.configs import (ARCH_IDS, SHAPES, ShapeSpec, get_config,
                                  get_optimizer_name, input_specs,
                                  shape_applicable)
 from repro_torch.core import flop_count as fc
+from repro_torch.core.comm_count import CollectiveStats
 from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.config import ModelConfig
@@ -128,7 +137,6 @@ def trace_step(cfg: ModelConfig, sp: ShapeSpec, mesh, optimizer: str =
     shapes only)."""
     rules = rules or ShardingRules()
     specs = input_specs(cfg, sp)
-    tokens = sp.global_batch * sp.seq_len
     # (shapes tree, shardings tree, requires grad) a step argument
     if sp.kind == "train":
         opt = make_optimizer(optimizer, lr=1e-3)
@@ -137,21 +145,18 @@ def trace_step(cfg: ModelConfig, sp: ShapeSpec, mesh, optimizer: str =
         inputs = [(pshapes, psh, True), (oshapes, osh, False),
                   (specs, bsh, False)]
         step = S.make_train_step(cfg, opt, mesh, rules)
-        model_flops = fc.model_flops_train(cfg, tokens)
     elif sp.kind == "prefill":
         from repro_torch.models.transformer import param_shapes
         pshapes = S._meta(param_shapes(cfg))
         inputs = [(pshapes, params_shardings(pshapes, mesh, rules), False),
                   (specs, S.batch_shardings(specs, mesh, rules), False)]
         step = S.make_prefill_step(cfg, mesh, rules)
-        model_flops = fc.model_flops_train(cfg, tokens) / 3.0
     else:  # decode
         (psh, dsh, tsh), pshapes = S.serve_in_shardings(
             cfg, specs["state"], sp.global_batch, mesh, rules)
         inputs = [(pshapes, psh, False), (specs["state"], dsh, False),
                   (specs["token"], tsh, False)]
         step = S.make_serve_step(cfg, mesh, rules)
-        model_flops = fc.model_flops_decode(cfg, sp.global_batch, sp.seq_len)
     with (fake_dtensors(mesh.device_type) if fake
           else contextlib.nullcontext()):
         t0 = time.time()
@@ -161,8 +166,86 @@ def trace_step(cfg: ModelConfig, sp: ShapeSpec, mesh, optimizer: str =
                  if isinstance(x, torch.Tensor)]
         counts = fc.count_device(step, *args, arguments=alive)
         seconds = time.time() - t0
-    return {"counts": counts, "model_flops": model_flops,
+    return {"counts": counts, "model_flops": model_flops(cfg, sp),
             "seconds": seconds}
+
+
+def model_flops(cfg: ModelConfig, sp: ShapeSpec) -> float:
+    """The global useful FLOPs of one ``sp.kind`` step, by formula."""
+    tokens = sp.global_batch * sp.seq_len
+    if sp.kind == "train":
+        return fc.model_flops_train(cfg, tokens)
+    if sp.kind == "prefill":
+        return fc.model_flops_train(cfg, tokens) / 3.0
+    return fc.model_flops_decode(cfg, sp.global_batch, sp.seq_len)
+
+
+# the two lengths a recurrent cell is traced at (a length the sharding
+# rules accept on both production meshes); S - 16 is a multiple of 16 in
+# every such cell, so each fitted count stays an integer
+FIT_SEQ = (16, 32)
+
+
+def fit_lengths(cfg: ModelConfig, sp: ShapeSpec
+                ) -> Optional[Tuple[int, int]]:
+    """``(S_a, S_b)`` to trace a cell at and extrapolate from, or None to
+    trace it directly: a ``train`` or ``prefill`` cell of an arch whose
+    blocks run the sLSTM / mLSTM time loop, longer than ``S_b``. With
+    ``time_chunk`` the lengths are 2 and 3 chunks, so every trace
+    checkpoints its chunks as the cell's does."""
+    if sp.kind == "decode" or not {"slstm", "mlstm"} & set(cfg.pattern):
+        return None
+    s_a, s_b = ((2 * cfg.time_chunk, 3 * cfg.time_chunk) if cfg.time_chunk
+                else FIT_SEQ)
+    if sp.seq_len <= s_b or (sp.seq_len - s_a) % (s_b - s_a):
+        return None
+    return s_a, s_b
+
+
+def extrapolate(a: "fc.DeviceCounts", b: "fc.DeviceCounts",
+                k: int) -> "fc.DeviceCounts":
+    """The counts at ``S_a + k (S_b - S_a)`` from traces at ``S_a`` (``a``)
+    and ``S_b`` (``b``): every additive count (FLOPs, op bytes, argument
+    and peak bytes, local ops, each collective kind's wire bytes and count)
+    on the line through the two. The per-op totals and the collective op
+    list are ``b``'s."""
+    def fit(x: int, y: int) -> int:
+        return x + (y - x) * k
+
+    def fit_kinds(x: Dict[str, int], y: Dict[str, int]) -> Dict[str, int]:
+        return {kind: fit(x.get(kind, 0), y.get(kind, 0))
+                for kind in sorted(set(x) | set(y))}
+
+    ca, cb = a.collectives, b.collectives
+    coll = CollectiveStats(
+        bytes_by_kind=fit_kinds(ca.bytes_by_kind, cb.bytes_by_kind),
+        count_by_kind=fit_kinds(ca.count_by_kind, cb.count_by_kind),
+        ops=list(cb.ops))
+    return dataclasses.replace(
+        b, flops=fit(a.flops, b.flops),
+        hbm_bytes=fit(a.hbm_bytes, b.hbm_bytes),
+        local_ops=fit(a.local_ops, b.local_ops),
+        argument_bytes=fit(a.argument_bytes, b.argument_bytes),
+        peak_bytes=fit(a.peak_bytes, b.peak_bytes), collectives=coll)
+
+
+def trace_cell(cfg: ModelConfig, sp: ShapeSpec, mesh, optimizer: str =
+               "adamw") -> Dict:
+    """:func:`trace_step` at the cell's S, or at :func:`fit_lengths`' two
+    and extrapolated to it (``extrapolated`` then holds the lengths;
+    ``seconds`` is both traces')."""
+    lengths = fit_lengths(cfg, sp)
+    if lengths is None:
+        return trace_step(cfg, sp, mesh, optimizer)
+    s_a, s_b = lengths
+    a, b = (trace_step(cfg, dataclasses.replace(sp, seq_len=s), mesh,
+                       optimizer) for s in lengths)
+    k = (sp.seq_len - s_a) // (s_b - s_a)
+    return {"counts": extrapolate(a["counts"], b["counts"], k),
+            "model_flops": model_flops(cfg, sp),
+            "seconds": a["seconds"] + b["seconds"],
+            "extrapolated": {"from_seq": [s_a, s_b], "to_seq": sp.seq_len,
+                             "top_ops_seq": s_b}}
 
 
 def record_fields(counts: "fc.DeviceCounts", model_flops: float,
@@ -234,7 +317,7 @@ def dryrun_cell(arch: str, shape: str, multi_pod: bool = False,
         with fake_process_group(chips):
             mesh = make_production_mesh(multi_pod=multi_pod,
                                         device_type=device)
-            out = trace_step(cfg, sp, mesh, get_optimizer_name(arch))
+            out = trace_cell(cfg, sp, mesh, get_optimizer_name(arch))
     except Exception as e:
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"
@@ -244,6 +327,8 @@ def dryrun_cell(arch: str, shape: str, multi_pod: bool = False,
     rec.update({"status": "ok", "kind": sp.kind,
                 **record_fields(out["counts"], out["model_flops"], chips,
                                 out["seconds"])})
+    if "extrapolated" in out:
+        rec["extrapolated"] = out["extrapolated"]
     if verbose:
         r = rec["roofline"]
         mem = rec["memory"]["total_bytes_per_device"] / 2**30

@@ -175,7 +175,7 @@ def test_torch_waterfill_refuses_what_the_reference_refuses():
                                   device="cpu")
 
 
-# ------------------------------------------------ sweep, unported features
+# ------------------------------------------------ sweep, trace export
 
 
 def _square(x):
@@ -190,10 +190,18 @@ def test_parallel_map_serial_equals_parallel(monkeypatch):
         == [x * x for x in items]
 
 
-def test_unported_dependencies_raise_naming_their_roadmap_item():
-    trace = run(PORT, 0, "fifo", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.16"):
-        trace.to_chrome_trace()
+def test_trace_to_chrome_trace_is_the_references():
+    """``Trace.to_chrome_trace`` delegates to the ported exporter
+    (``repro_torch.obs.trace_export``): the reference's dict, with and
+    without the run's templates."""
+    port, ref = run(PORT, 0, "fifo", 2), run(REF, 0, "fifo", 2)
+    assert port.to_chrome_trace() == ref.to_chrome_trace()
+    doc = port.to_chrome_trace(templates=make_steps(port_events, 0, 2),
+                               trace_name="port")
+    assert doc == ref.to_chrome_trace(templates=make_steps(ref_events, 0, 2),
+                                      trace_name="port")
+    assert {e["cat"] for e in doc["traceEvents"] if e["ph"] == "X"} \
+        == {"compute", "transmission"}
 
 
 def test_checkpoint_cost_model_calibrates_on_the_ports_manager(tmp_path,

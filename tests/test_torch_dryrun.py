@@ -15,8 +15,12 @@ against the reference's pieces.
   of the reference's compiled step on the same mesh.
 * A step traced on fake tensors against the same step on real ones.
 * A production cell, gemma-7b ``train_4k`` on 16 x 16, ``ok``.
+* xlstm-350m's recurrent cells, traced at S = 16 and 32 and extrapolated
+  to the cell's S: at a 2-layer cut the fit equals a direct trace at
+  S = 48 in every count, for ``train`` and ``prefill``.
 * The flash op's fake kernel: the CUDA wrapper's contract on ``cuda``.
 """
+import dataclasses
 import json
 import os
 import pathlib
@@ -583,3 +587,90 @@ def test_flash_fake_kernel_holds_the_devices_contract(name, device):
         else:
             with pytest.raises(ValueError, match=want):
                 op(q, k, k, causal, 0)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent cells: two short traces extrapolated to the cell's S
+# ---------------------------------------------------------------------------
+
+XLSTM = "xlstm-350m"
+
+
+def _fit_fields(c):
+    """Every count the extrapolation fits."""
+    return (c.flops, c.hbm_bytes, c.local_ops, c.argument_bytes,
+            c.peak_bytes, c.collectives.bytes_by_kind,
+            c.collectives.count_by_kind)
+
+
+def _xlstm_counts(shape: str, lengths):
+    """xlstm-350m cut to 2 layers, traced at each of ``lengths`` with
+    ``shape``'s batch on the 16 x 16 mesh, as ``dryrun_cell`` builds it."""
+    cfg = get_config(XLSTM).replace(n_layers=2, use_flash_kernel=True)
+    sp = SHAPES[shape]
+    with dryrun.fake_process_group(256):
+        mesh = dryrun.make_production_mesh(device_type="cpu")
+        return [dryrun.trace_step(cfg, dataclasses.replace(sp, seq_len=s),
+                                  mesh)["counts"] for s in lengths]
+
+
+def test_xlstm_train_fit_equals_a_direct_trace():
+    """FLOPs, op bytes, argument and peak bytes, local ops and each
+    collective kind's bytes and count are affine in S: the line through
+    S = 16 and 32 meets a direct trace at S = 48 exactly (the peak falls
+    at the same program point at every S)."""
+    a, b, direct = _xlstm_counts("train_4k", (16, 32, 48))
+    assert _fit_fields(dryrun.extrapolate(a, b, 2)) == _fit_fields(direct)
+    assert b.flops > a.flops and b.peak_bytes > a.peak_bytes
+
+
+def test_xlstm_prefill_cell_is_extrapolated_exactly(monkeypatch):
+    """``dryrun_cell`` of ``prefill_32k`` at a 2-layer cut traces S = 16
+    and 32 only, and its record holds their fit to S = 32768; the same
+    fit to S = 48 equals a direct trace there."""
+    seen = {}
+    trace = dryrun.trace_step
+
+    def spy(cfg, sp, mesh, *args, **kw):
+        out = trace(cfg, sp, mesh, *args, **kw)
+        seen[sp.seq_len] = out["counts"]
+        return out
+
+    monkeypatch.setattr(dryrun, "trace_step", spy)
+    rec = dryrun.dryrun_cell(XLSTM, "prefill_32k", device="cpu",
+                             hillclimb={"n_layers": 2}, verbose=False)
+    monkeypatch.undo()
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert set(rec) == RECORD_KEYS | {"extrapolated"}
+    assert rec["extrapolated"] == {"from_seq": [16, 32], "to_seq": 32768,
+                                   "top_ops_seq": 32}
+    assert sorted(seen) == [16, 32]
+    cfg = get_config(XLSTM).replace(n_layers=2, use_flash_kernel=True)
+    fit = dryrun.extrapolate(seen[16], seen[32], (32768 - 16) // 16)
+    want = dryrun.record_fields(
+        fit, dryrun.model_flops(cfg, SHAPES["prefill_32k"]), 256, 0.0)
+    for key in ("memory", "cost", "collectives", "top_ops", "roofline"):
+        assert rec[key] == want[key], key
+    assert rec["roofline"]["model_flops"] \
+        == dryrun.fc.model_flops_train(cfg, 32 * 32768) / 3.0
+    (direct,) = _xlstm_counts("prefill_32k", (48,))
+    assert _fit_fields(dryrun.extrapolate(seen[16], seen[32], 2)) \
+        == _fit_fields(direct)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_only_recurrent_train_and_prefill_cells_are_extrapolated(arch,
+                                                                 shape):
+    """Every other cell takes the direct trace, with no
+    ``extrapolated`` key (``test_production_cell_is_ok`` checks one
+    record's keys)."""
+    cfg = get_config(arch)
+    lengths = dryrun.fit_lengths(cfg, SHAPES[shape])
+    recurrent = arch == XLSTM and SHAPES[shape].kind != "decode"
+    assert lengths == ((16, 32) if recurrent else None)
+    if recurrent:   # the optimized config's time chunks: 2 and 3 of them
+        assert dryrun.fit_lengths(cfg.replace(time_chunk=128),
+                                  SHAPES[shape]) == (256, 384)
+        assert dryrun.fit_lengths(cfg, dataclasses.replace(
+            SHAPES[shape], seq_len=32)) is None
