@@ -241,7 +241,31 @@ for each source, all started together), then
           as a subprocess, its ledger at ``REPRO_LEDGER`` (both in
           ``build/phase14/``, removed at the end): exit 0, the trace
           valid by ``obs.view.validate_chrome_trace``, the ledger read back
-          by ``obs.report.summarize``.
+          by ``obs.report.summarize``;
+ 15. the lockstep batched engine and the multi-tenant fleet engine
+     (``core/batched.py``, ``core/fleet.py``; host numpy and Python, no
+     tensor work), its times host seconds:
+       a. ``run_scenarios`` over 64 scenarios of the reference test's
+          ``w8_ps2_2tpl`` family (seeds 0-63, ``min_batch=1``), the
+          ``auto`` engine against the ``scalar`` one: every fingerprint
+          (completions, staleness, end time, events, versions) equal; then
+          ``predict_many(batch=True)`` on alexnet's profiled templates
+          (batch 8, profile 10, sim 60, W = 2 and 4, 2 runs) equal bit for
+          bit to the serial ``predict_many``, the case where the
+          reference's batched engine misses its scalar engine in the last
+          bits (ROADMAP §3); the fallback histogram, the share that ran
+          lockstep and both engines' seconds;
+       b. ``python -m repro_torch.launch.whatif --fleet examples/fleet.json
+          --scale-job A:3 --export-trace ...`` as a subprocess
+          (``REPRO_SWEEP_SERIAL=1``, its trace and ``REPRO_LEDGER`` in
+          ``build/phase15/``, removed at the end): exit 0, the table's
+          lines equal to the reference's (``FLEET_LINES``), the trace
+          valid, no ledger record;
+       c. the reference test's two-job fleet at oversubscriptions 1, 2 and
+          4 through ``simulate_fleets``'s process pool, equal to the serial
+          run; the ``FleetEmulator`` two-job parity case: each job's DES
+          throughput within 0.35 of the emulator's, contended no faster
+          than alone.
 
 Each result is printed as it comes; the line before the card's name is one
 JSON object with the kernels, and the last line is
@@ -368,6 +392,31 @@ WHATIF_ARGV = ["--ps-cluster", "--dnn", "alexnet", "--batch", "8",
                "--sync-mode", "sync", "--backup-workers", "1", "--mttf",
                "60", "--mttr", "5", "--fault-seed", "1", "--profile-steps",
                "10", "--sim-steps", "60"]
+# phase 15b's trace and ledger, removed when the phase ends
+PHASE15_DIR = ROOT / "build" / "phase15"
+BATCHED_SEEDS = 64      # 15a: scenarios of the w8_ps2_2tpl family
+# 15a: the cheap paper case where the reference's batched engine and its
+# scalar engine part (W = 4: 3.35262 against 3.39494 ex/s)
+BATCHED_CASE = dict(dnn="alexnet", batch_size=8, platform="private_cpu",
+                    profile_steps=10, sim_steps=60)
+BATCHED_W, BATCHED_RUNS = [2, 4], 2
+# 15b: the fleet what-if, and the lines the reference prints for it (the
+# first names the spec's path, the last the trace's)
+FLEET_SPEC = "examples/fleet.json"
+FLEET_ARGV = ["--fleet", FLEET_SPEC, "--scale-job", "A:3"]
+FLEET_LINES = [
+    "# fleet examples/fleet.json: 2 jobs on 7 nodes, bw=1e+09 B/s",
+    "     job   W       ex/s      alone slowdown  share",
+    "       A   4      17.38      19.95     1.15  0.871",
+    "       B   2       7.98      16.51     2.07  0.484",
+    "# jain fairness index = 0.9244",
+    "# what-if: job A at 3x workers (4 -> 12)",
+    "     job   W       ex/s        was  delta%  share",
+    "       A  12      22.45      17.38   +29.2  0.973",
+    "       B   2       4.01       7.98   -49.7  0.243",
+    "# jain fairness index = 0.7351 (was 0.9244)",
+    "# exported Chrome trace -> ... (4253 events; open in ui.perfetto.dev)"]
+FLEET_PARITY = 0.35     # 15c: DES against emulator, tests/test_fleet.py
 MESH_LOSS_TOL = 1e-5    # 12a: the DTensor path's losses against phase 3's
 DRYRUN_FLOP_TOL = 1e-9  # 13a: traced FLOPs against the real step's
 DRYRUN_PEAK_TOL = 0.10  # 13a: traced peak bytes against 12a's measured one
@@ -803,6 +852,14 @@ def main() -> int:
     paper_phase(card)
     mark("14b")
     whatif_phase(card)
+
+    # -- phase 15: the batched and fleet engines on the host -----------------
+    mark("15a")
+    batched_phase(card)
+    mark("15b")
+    fleet_whatif_phase(card)
+    mark("15c")
+    fleet_phase(card)
 
     flash_launches = {"train gemma-7b 4 layers x 5 steps":
                       gemma["launches"]["flash_attention"],
@@ -2601,6 +2658,31 @@ def paper_phase(card: str) -> None:
             "the serial run's")
 
 
+def run_whatif(label: str, argv, led: Path, timeout: int):
+    """``python -m repro_torch.launch.whatif argv`` from the checkout's
+    root with its ledger at ``led``, each stdout line printed under
+    ``label``; a non-zero exit fails. Serial (``REPRO_SWEEP_SERIAL=1``):
+    the pool's workers would each re-import the what-if's module, and with
+    it torch (about 50 s of host time on an H100 machine); 14a and 15c
+    hold the pools against serial runs. Returns the stdout lines and the
+    host seconds."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "REPRO_LEDGER": str(led), "REPRO_SWEEP_SERIAL": "1"}
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.whatif", *argv],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    seconds = time.time() - t0
+    lines = out.stdout.splitlines()
+    for line in lines:
+        print(f"{label} | {line}")
+    if out.returncode:
+        print(out.stderr[-4000:], flush=True)
+    require(out.returncode == 0,
+            f"{label}: the what-if exited {out.returncode}")
+    return lines, seconds
+
+
 def whatif_phase(card: str) -> None:
     """14b: the what-if's PS-cluster mode as a user runs it, with a trace
     exported and the run ledger on; the trace validated and the ledger
@@ -2610,23 +2692,8 @@ def whatif_phase(card: str) -> None:
     PHASE14_DIR.mkdir(parents=True, exist_ok=True)
     try:
         trace, led = PHASE14_DIR / "t.json", PHASE14_DIR / "l.jsonl"
-        # serial: the pool's workers would each re-import the what-if's
-        # module, and with it torch (about 50 s of host time in PR 23 call
-        # 2); 14a holds the pool against the serial run
-        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-               "REPRO_LEDGER": str(led), "REPRO_SWEEP_SERIAL": "1"}
-        t0 = time.time()
-        out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.whatif",
-             *WHATIF_ARGV, "--export-trace", str(trace)], cwd=ROOT,
-            env=env, capture_output=True, text=True, timeout=600)
-        seconds = time.time() - t0
-        for line in out.stdout.splitlines():
-            print(f"14b | {line}")
-        if out.returncode:
-            print(out.stderr[-4000:], flush=True)
-        require(out.returncode == 0,
-                f"14b: the what-if exited {out.returncode}")
+        _, seconds = run_whatif("14b", [*WHATIF_ARGV, "--export-trace",
+                                        str(trace)], led, timeout=600)
         with open(trace) as f:
             doc = json.load(f)
         problems = validate_chrome_trace(doc)
@@ -2643,6 +2710,205 @@ def whatif_phase(card: str) -> None:
                 "14b: the ledger does not hold the what-if's record")
     finally:
         shutil.rmtree(PHASE14_DIR, ignore_errors=True)
+
+
+def ps_template(ev, layers: int, seed: int, num_ps: int = 1,
+                size=(2e6, 3e7), fwd=(.005, .05), bwd=(.01, .08)):
+    """The reference tests' PS-shaped synthetic step: download -> fwd per
+    layer, then bwd -> upload, layers round-robin over the PS shards. The
+    default ranges are ``tests/test_batched_equivalence.py``'s, 15c passes
+    ``tests/test_fleet.py``'s."""
+    import random
+    rng = random.Random(seed)
+
+    def link(kind, i):
+        return kind if num_ps == 1 else f"{kind}:{i % num_ps}"
+
+    ops, fwd_prev = [], None
+    for i in range(layers):
+        dl = len(ops)
+        ops.append(ev.Op(f"dl{i}", link("downlink", i),
+                         size=rng.uniform(*size)))
+        deps = (dl,) if fwd_prev is None else (dl, fwd_prev)
+        fwd_prev = len(ops)
+        ops.append(ev.Op(f"fwd{i}", "worker", duration=rng.uniform(*fwd),
+                         deps=deps))
+    bwd_prev = fwd_prev
+    for i in reversed(range(layers)):
+        b = len(ops)
+        ops.append(ev.Op(f"bwd{i}", "worker", duration=rng.uniform(*bwd),
+                         deps=(bwd_prev,)))
+        bwd_prev = b
+        ops.append(ev.Op(f"ul{i}", link("uplink", i),
+                         size=rng.uniform(*size), deps=(b,)))
+    return ev.StepTemplate(ops=ops)
+
+
+def batched_phase(card: str) -> None:
+    """15a: the lockstep engine against the scalar engine on a synthetic
+    family, then on the paper's profiled templates."""
+    from repro_torch.core import events as ev
+    from repro_torch.core.batched import (Scenario, fallback_histogram,
+                                          run_scenarios)
+    from repro_torch.core.predictor import PredictionRun
+    from repro_torch.core.simulator import SimConfig
+    from repro_torch.core.sweep import predict_many
+
+    def fingerprint(tr):
+        return (tr.step_completions, tr.staleness, tr.meta["sim_end_time"],
+                tr.meta["num_events"], tr.meta["num_versions"])
+
+    tpls = [ps_template(ev, 3, 0, num_ps=2), ps_template(ev, 4, 1, num_ps=2)]
+    scens = [Scenario(SimConfig(
+        resources=ev.ps_resources(1e9, 2), link_policy="http2", win=2.8e6,
+        steps_per_worker=5, warmup_steps=2, seed=s, service_jitter=0.08,
+        stall_alpha=2e-9, stall_rtt=5e-4), tpls, 8)
+        for s in range(BATCHED_SEEDS)]
+    t0 = time.time()
+    auto = run_scenarios(scens, engine="auto", min_batch=1)
+    t_auto = time.time() - t0
+    t0 = time.time()
+    scalar = run_scenarios(scens, engine="scalar")
+    t_scalar = time.time() - t0
+    same = sum(fingerprint(a) == fingerprint(b)
+               for a, b in zip(auto, scalar))
+    lockstep = sum(t.meta["engine"] == "batched" for t in auto)
+    print(f"15a w8_ps2_2tpl x {len(scens)}: {same}/{len(scens)} "
+          f"fingerprints equal; lockstep {lockstep}/{len(scens)}, fallback "
+          f"histogram {fallback_histogram(auto)}; host seconds batched "
+          f"{t_auto:.2f}, scalar {t_scalar:.2f} (host time; card {card})",
+          flush=True)
+    require(same == len(scens), "15a: the batched engine's traces differ "
+            "from the scalar engine's")
+    require(lockstep > 0, "15a: no scenario ran lockstep")
+    run = PredictionRun(**BATCHED_CASE).prepare()
+    t0 = time.time()
+    batched = predict_many(run, BATCHED_W, n_runs=BATCHED_RUNS, batch=True)
+    t_b = time.time() - t0
+    os.environ["REPRO_SWEEP_SERIAL"] = "1"
+    try:
+        t0 = time.time()
+        serial = predict_many(run, BATCHED_W, n_runs=BATCHED_RUNS)
+        t_s = time.time() - t0
+    finally:
+        del os.environ["REPRO_SWEEP_SERIAL"]
+    print(f"15a predict_many {BATCHED_CASE['dnn']} batch "
+          f"{BATCHED_CASE['batch_size']} W = {BATCHED_W} x {BATCHED_RUNS} "
+          f"runs: batched {batched}, serial {serial}, bit-equal "
+          f"{batched == serial}; host seconds batched {t_b:.2f}, serial "
+          f"{t_s:.2f} (host time; card {card})", flush=True)
+    require(batched == serial, "15a: predict_many(batch=True) differs from "
+            "the serial run on the paper's templates")
+
+
+def fleet_whatif_phase(card: str) -> None:
+    """15b: the fleet what-if as a user runs it, with a trace exported and
+    the ledger pointed into the phase's directory (fleet mode writes no
+    record)."""
+    from repro_torch.obs.view import summarize, validate_chrome_trace
+    PHASE15_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        trace, led = PHASE15_DIR / "fleet.json", PHASE15_DIR / "l.jsonl"
+        lines, seconds = run_whatif("15b", [*FLEET_ARGV, "--export-trace",
+                                            str(trace)], led, timeout=300)
+        got = [line.replace(str(trace), "...") for line in lines]
+        with open(trace) as f:
+            doc = json.load(f)
+        problems = validate_chrome_trace(doc)
+        print(f"15b what-if --fleet: exit 0 in {seconds:.2f} host seconds "
+              f"(host time; card {card}); lines equal to the reference's "
+              f"{got == FLEET_LINES}; trace {summarize(doc)['events']} "
+              f"events, problems {problems}; ledger written "
+              f"{led.exists()}", flush=True)
+        require(got == FLEET_LINES,
+                "15b: the fleet what-if's lines differ from the reference's")
+        require(not problems, "15b: the exported trace is not valid")
+        require(not led.exists(), "15b: fleet mode wrote a ledger record")
+    finally:
+        shutil.rmtree(PHASE15_DIR, ignore_errors=True)
+
+
+def fleet_phase(card: str) -> None:
+    """15c: the fleet engine through the process pool against its serial
+    run, and the ``FleetEmulator`` against the merged DES."""
+    from repro_torch.core import events as ev
+    from repro_torch.core.fleet import (FleetConfig, FleetJob,
+                                        FleetSimulation)
+    from repro_torch.core.paper_models import PAPER_DNNS, PLATFORMS
+    from repro_torch.core.predictor import (calibrate_overhead,
+                                            preprocess_profile)
+    from repro_torch.core.sweep import simulate_fleet_task, simulate_fleets
+    from repro_torch.core.topology import Node, Placement, Rack, Topology
+    from repro_torch.emulator.cluster import (FleetEmulator,
+                                              profile_single_worker)
+
+    def job(name, workers, seed, **kw):
+        return FleetJob(name=name, workers=workers, ps_hosts=("h0",),
+                        seed=seed, batch_size=8, steps_per_worker=40,
+                        warmup_steps=8, **kw)
+
+    tasks = []
+    for oversub in (1.0, 2.0, 4.0):
+        cfg = FleetConfig(topology=Topology(
+            workers=(Node("h0", rack="r0", nic=2.0),)
+            + tuple(Node(f"w{i}", rack="r1") for i in range(6)),
+            racks=(Rack("r0", oversubscription=oversub), Rack("r1")),
+            placement=Placement(("h0",)), bandwidth=1e9), jobs=(
+            job("A", ("w0", "w1", "w2"), 0, service_jitter=0.05),
+            job("B", ("w4", "w5"), 1)))
+        steps = [ps_template(ev, 4, s, size=(2e6, 2e7), fwd=(.004, .03),
+                             bwd=(.008, .05)) for s in range(2)]
+        tasks.append((cfg, {"A": steps, "B": steps}, True))
+    t0 = time.time()
+    pooled = simulate_fleets(tasks, max_workers=len(tasks))
+    t_pool = time.time() - t0
+    t0 = time.time()
+    serial = [simulate_fleet_task(t) for t in tasks]
+    t_ser = time.time() - t0
+    tputs = [ft.throughputs(t[0]) for ft, t in zip(pooled, tasks)]
+    print(f"15c simulate_fleets, the two-job pair at oversubscription 1, 2, "
+          f"4: {tputs}; pool bit-equal to serial {pooled == serial}; host "
+          f"seconds pool {t_pool:.2f}, serial {t_ser:.2f} (host time; card "
+          f"{card})", flush=True)
+    require(pooled == serial, "15c: the pool's fleet runs differ from the "
+            "serial runs")
+
+    plat, dnn, batch = PLATFORMS["private_cpu"], PAPER_DNNS["alexnet"], 8
+    topo = Topology(workers=(Node("h0", nic=2.0),)
+                    + tuple(Node(f"w{i}") for i in range(4)),
+                    placement=Placement(("h0",)), bandwidth=plat.bandwidth)
+    overhead = calibrate_overhead(plat, seed=0)
+    tpls = preprocess_profile(profile_single_worker(
+        dnn, batch, plat, steps=14, seed=0), overhead)
+    jobs = tuple(FleetJob(
+        name=n, workers=ws, ps_hosts=("h0",), batch_size=batch,
+        steps_per_worker=30, warmup_steps=6, seed=sd, win=plat.win_mu,
+        stall_alpha=overhead.alpha, stall_rtt=plat.rtt,
+        service_jitter=plat.noise_bandwidth)
+        for n, ws, sd in (("A", ("w0", "w1"), 0), ("B", ("w2", "w3"), 1)))
+    cfg = FleetConfig(topology=topo, jobs=jobs)
+    t0 = time.time()
+    sim = FleetSimulation(cfg)
+    des = sim.run({"A": tpls, "B": tpls}, merged=True).throughputs(cfg)
+    alone = {j.name: sim.run_alone(j.name, {"A": tpls, "B": tpls},
+                                   merged=True).jobs[j.name].throughput(
+                 j.batch_size, warmup_steps=j.warmup_steps)
+             for j in jobs}
+    wl = dict(dnn=dnn, batch_size=batch, platform=plat)
+    emu = FleetEmulator(cfg, {"A": dict(wl), "B": dict(wl)})
+    emu.run(steps_per_worker=30)
+    emu_tput = emu.throughputs(warmup_steps=6)
+    seconds = time.time() - t0
+    rel = {n: abs(des[n] - emu_tput[n]) / emu_tput[n] for n in des}
+    print(f"15c FleetEmulator parity (alexnet batch 8, two jobs of 2 "
+          f"workers on one PS host): DES {des}, alone {alone}, emulator "
+          f"{emu_tput}, relative gap {rel} (bound {FLEET_PARITY}); "
+          f"{seconds:.2f} host seconds (host time; card {card})",
+          flush=True)
+    require(all(r < FLEET_PARITY for r in rel.values()),
+            "15c: the DES and the fleet emulator disagree past the bound")
+    require(all(des[n] <= alone[n] * (1 + 1e-9) for n in des),
+            "15c: a job ran faster contended than alone")
 
 
 def mesh_train_phase(gemma: dict, mesh, counters) -> dict:

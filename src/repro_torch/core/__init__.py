@@ -5,8 +5,10 @@ throughput prediction (Li et al., ICPE'20), the PS-cluster pipeline
 against), plus the GPU step DAG (``gpu_adapter``) and the FLOP count of a
 PyTorch step that calibrates it (``flop_count``).
 
-The reference's batched and fleet engines (ROADMAP 1.18a) and placement
-search and calibration (ROADMAP 1.18b) are not ported yet."""
+The lockstep batched engine (``batched``) and the multi-tenant fleet
+engine (``fleet``) are ported; like the reference, the package does not
+re-export their names.  Placement search and calibration (ROADMAP 1.18b)
+are not ported yet."""
 from .bandwidth import (BandwidthModel, EqualShareModel,
                         GroupedBandwidthModel, IncrementalWaterfill,
                         batched_waterfill, stack_waterfill_problems,

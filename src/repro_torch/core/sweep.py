@@ -27,11 +27,6 @@ Three layers:
 
 Set ``REPRO_SWEEP_SERIAL=1`` to force in-process execution (debugging,
 profiling, or environments where fork is unavailable).
-
-The batched and fleet tasks (``simulate_all(batch=True)``,
-:func:`simulate_batched`, :func:`simulate_fleet_task`,
-:func:`simulate_fleets`) need ``core/batched.py`` and ``core/fleet.py``,
-which are not ported yet: they raise, naming ROADMAP 1.18a.
 """
 from __future__ import annotations
 
@@ -152,22 +147,21 @@ def simulate_task(task: SimTask) -> float:
 FleetTask = Tuple[object, dict, Optional[bool]]
 
 
-def _unported(what: str, module: str):
-    return NotImplementedError(
-        f"{what} needs {module}, which is not ported yet: ROADMAP 1.18a")
-
-
 def simulate_fleet_task(task: FleetTask):
-    """One seeded fleet run -> a ``FleetTrace`` (the multi-job unit of
-    parallel work).  Not ported yet: ROADMAP 1.18a."""
-    raise _unported("simulate_fleet_task", "core/fleet.py")
+    """One seeded fleet run -> :class:`repro_torch.core.fleet.FleetTrace`
+    (the multi-job unit of parallel work; per-job throughputs come off the
+    returned per-job traces)."""
+    from repro_torch.core.fleet import FleetSimulation
+    cfg, steps_by_job, merged = task
+    return FleetSimulation(cfg).run(steps_by_job, merged=merged)
 
 
 def simulate_fleets(tasks: Sequence[FleetTask], parallel: bool = True,
                     max_workers: Optional[int] = None) -> List:
     """Fan pre-seeded fleet payloads across the pool, order-preserving —
-    ``simulate_fleet_task`` per task.  Not ported yet: ROADMAP 1.18a."""
-    raise _unported("simulate_fleets", "core/fleet.py")
+    ``simulate_fleet_task`` per task, same results serial or parallel."""
+    return parallel_map(simulate_fleet_task, list(tasks),
+                        max_workers=max_workers, parallel=parallel)
 
 
 def measure_task(args: tuple) -> float:
@@ -233,8 +227,10 @@ def simulate_all(tasks: Sequence[SimTask],
     (candidate batches of placement search and the ``predict_many`` fan
     both reuse one template list across dozens of tasks).
 
-    ``batch=True`` routes through :func:`simulate_batched`, the lockstep
-    array engine, which is not ported yet (ROADMAP 1.18a): it raises.
+    ``batch=True`` routes through :func:`simulate_batched` — the lockstep
+    array engine in ``repro_torch.core.batched`` runs every batchable task
+    in one in-process vectorized sweep (non-batchable tasks fall back to
+    the scalar simulator), same results, no process pool.
 
     Inside a :func:`pool` block, tasks go to the ambient shared executor
     instead of a fresh per-call pool (templates then ride inside each
@@ -262,9 +258,21 @@ def simulate_all(tasks: Sequence[SimTask],
 def simulate_batched(tasks: Sequence[SimTask],
                      templates: Optional[list] = None,
                      engine: str = "auto") -> List[float]:
-    """:func:`simulate_all` through the lockstep batched engine.  Not
-    ported yet: ROADMAP 1.18a."""
-    raise _unported("simulate_batched", "core/batched.py")
+    """:func:`simulate_all` through the lockstep batched engine.
+
+    Each task becomes a :class:`repro_torch.core.batched.Scenario`; one
+    ``run_scenarios`` call simulates every batchable group as stacked
+    arrays and punts the rest to the scalar simulator, so the returned
+    throughputs are identical to the serial path (``engine="scalar"``
+    forces the punt everywhere — useful for differential tests)."""
+    from repro_torch.core.batched import Scenario, run_scenarios
+    scens = []
+    for cfg, tpls, num_workers, _bs, _wu in tasks:
+        scens.append(Scenario(cfg, tpls if tpls is not None else templates,
+                              num_workers))
+    traces = run_scenarios(scens, engine=engine)
+    return [tr.throughput(task[3], warmup_steps=task[4])
+            for task, tr in zip(tasks, traces)]
 
 
 _ambient_pool: Optional["SimulationPool"] = None
@@ -347,8 +355,8 @@ def predict_many(run, workers: Sequence[int], n_runs: int = 3,
     """Predicted examples/s for each worker count, ``n_runs`` seeded
     simulations per count, fanned over the pool.  Identical to calling
     ``run.predict(w, n_runs)`` per count (same seeds, same mean).
-    ``batch=True`` asks for the lockstep batched engine, which is not
-    ported yet (:func:`simulate_batched` raises)."""
+    ``batch=True`` uses the lockstep batched engine instead of the
+    process pool (see :func:`simulate_batched`)."""
     if not run.sim_steps_templates:
         run.prepare()
     tasks: List[SimTask] = []

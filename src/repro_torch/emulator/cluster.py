@@ -991,12 +991,149 @@ def probe_parse_overheads(platform: Platform, sizes: Sequence[float],
 # --------------------------------------------------------------------- fleet
 
 
-class FleetEmulator:
-    """Concurrent :class:`ClusterEmulator` members on one shared fabric,
-    the ground truth of the fleet engine.  Not ported yet: it needs
-    ``core/fleet.py``'s bandwidth model (ROADMAP 1.18a)."""
+class _TenantModel:
+    """Per-job view of the fleet bandwidth model: local link names map to
+    the fleet's namespaced group keys (``uplink`` of job 2 scales the
+    ``("link", "j2/uplink")`` group, nobody else's)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FleetEmulator needs core/fleet.py, which is not ported yet: "
-            "ROADMAP 1.18a")
+    def __init__(self, job_index: int):
+        self.j = job_index
+
+    def link_group_key(self, lname: str):
+        return ("link", f"j{self.j}/{lname}")
+
+
+class _TenantFabric:
+    """Facade a fleet member uses as its ``fabric``: every call forwards
+    to the ONE shared :class:`_Fabric` after rewriting the member's local
+    ``(worker, link)`` connection into the fleet's namespaced connection
+    space, so all jobs' bursts contend in a single weighted waterfill.
+    Flow ids come from the module-global ``_seq`` and are already unique
+    across members, so removals and projections forward unchanged."""
+
+    def __init__(self, shared: _Fabric, job_index: int, worker_base: int):
+        self.shared = shared
+        self.j = job_index
+        self.base = worker_base
+        self.model = _TenantModel(job_index)
+
+    @property
+    def iwf(self):
+        return self.shared.iwf
+
+    @property
+    def rate_log(self):
+        return self.shared.rate_log
+
+    def _conn(self, conn: Tuple[int, str]) -> Tuple[int, str]:
+        w, lid = conn
+        return (self.base + w, f"j{self.j}/{lid}")
+
+    def add_flow(self, t: float, flow: Flow, conn: Tuple[int, str]) -> None:
+        self.shared.add_flow(t, flow, self._conn(conn))
+
+    def remove_flow(self, t: float, fid: int) -> None:
+        self.shared.remove_flow(t, fid)
+
+    def _rebalance(self, t: float) -> None:
+        self.shared._rebalance(t)
+
+    def flow_event(self, epoch: int) -> None:
+        self.shared.flow_event(epoch)
+
+
+class FleetEmulator:
+    """Concurrent :class:`ClusterEmulator` members on one shared fabric.
+
+    The ground-truth counterpart of ``repro_torch.core.fleet.FleetSimulation``'s
+    merged engine: each job of a ``FleetConfig`` becomes a member emulator
+    built against its sub-topology, every member's timer calendar is the
+    SAME heap (the module-global ``_seq`` already totally orders entries
+    across members), and every member's fabric is a :class:`_TenantFabric`
+    facade over one shared weighted-waterfill pool compiled from
+    ``repro_torch.core.fleet.FleetBandwidthModel`` — so a burst of job A and a
+    burst of job B colocated on one node split that node's NIC exactly as
+    the DES merged engine splits it.
+
+    ``workloads`` maps job name -> dict with ``dnn``, ``batch_size``,
+    ``platform`` (and optionally ``flow_control``, ``order``).  Members
+    keep their own RNGs (job seed), sync controllers and fault replays;
+    all-reduce members run the compiled collective DAG (the emulator does
+    not model live collective flows — that is the DES engine's job).
+    """
+
+    def __init__(self, fleet, workloads: Dict[str, dict],
+                 fabric_mode: str = "incremental"):
+        from repro_torch.core.fleet import FleetBandwidthModel
+        if fleet.topology.bandwidth is None:
+            raise ValueError("fleet topology needs an explicit bandwidth")
+        self.fleet = fleet
+        self.t = 0.0
+        self.timers: List[Tuple[float, int, object]] = []
+        self.fabric = _Fabric(self, FleetBandwidthModel(fleet),
+                              fleet.topology.bandwidth,
+                              incremental=fabric_mode == "incremental")
+        base = fleet.worker_base()
+        self.members: List[ClusterEmulator] = []
+        for j, job in enumerate(fleet.jobs):
+            if job.name not in workloads:
+                raise ValueError(f"workloads is missing job {job.name!r}")
+            wl = workloads[job.name]
+            m = ClusterEmulator(
+                wl["dnn"], wl["batch_size"], wl["platform"],
+                num_workers=job.num_workers, seed=job.seed,
+                flow_control=wl.get("flow_control", True),
+                order=wl.get("order", "profiled"),
+                topology=fleet.sub_topology(j),
+                sync=fleet.sim_config(j).sync_spec(),
+                fabric_mode=fabric_mode, faults=job.faults)
+            # adopt the shared calendar (keeping anything the member
+            # scheduled during construction, e.g. background traffic)
+            for e in m.timers:
+                heapq.heappush(self.timers, e)
+            m.timers = self.timers
+            m.fabric = _TenantFabric(self.fabric, j, base[j])
+            self.members.append(m)
+
+    def member(self, name: str) -> ClusterEmulator:
+        return self.members[self.fleet.job_index(name)]
+
+    def run(self, steps_per_worker=100, horizon: float = 1e7) -> None:
+        """Drain the merged calendar until every job hits its target.
+        ``steps_per_worker`` is an int for all jobs or a mapping
+        job name -> int."""
+        max_events = 0
+        for j, job in enumerate(self.fleet.jobs):
+            n = (steps_per_worker if isinstance(steps_per_worker, int)
+                 else steps_per_worker[job.name])
+            m = self.members[j]
+            m.start(n)
+            max_events += 2000 * n * m.W * max(1, len(m.ops))
+        guard = 0
+        timers = self.timers
+        members = self.members
+        while self.t < horizon:
+            guard += 1
+            if guard > max_events:
+                raise RuntimeError("fleet emulator event guard tripped")
+            if all(c >= m.steps_target for m in members
+                   for c in m.completed_steps):
+                break
+            if not timers:
+                break
+            t_next, _s, item = heapq.heappop(timers)
+            if t_next > self.t:
+                self.t = t_next
+                for m in members:
+                    m.t = self.t
+            if type(item) is tuple:     # ("flow", None, epoch): shared pool
+                self.fabric.flow_event(item[2])
+            else:
+                item()
+
+    def throughputs(self, warmup_steps: int = 50,
+                    window: str = "common") -> Dict[str, float]:
+        """examples/s per job off each member's completion record."""
+        return {job.name: self.members[j].throughput(
+                    warmup_steps=warmup_steps, window=window)
+                for j, job in enumerate(self.fleet.jobs)}

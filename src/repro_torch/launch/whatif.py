@@ -47,8 +47,25 @@ rack fabrics, heterogeneous PS NICs, PS colocated with worker 0:
 Its lines are the reference's, character for character.  Run from the repo
 root, the mode appends a ``whatif_ps`` record to ``build/ledger.jsonl``
 (``REPRO_LEDGER=<path>`` overrides, ``REPRO_LEDGER=0`` turns it off); the
-GPU mode writes none.  ``--calibrate`` and ``--optimize-placement`` are
-ROADMAP 1.18b, ``--fleet`` and ``--scale-job`` ROADMAP 1.18a: they raise.
+GPU mode writes none.
+
+Fleet mode (``--fleet jobs.json``), the reference's own: several
+concurrent jobs on one shared topology, run through the merged fleet
+engine (``repro_torch.core.fleet``):
+
+    PYTHONPATH=src python -m repro_torch.launch.whatif \
+        --fleet examples/fleet.json --scale-job A:3
+
+reports each job's contended throughput, its run-alone baseline on the
+same fabric, the slowdown, and the Jain fairness index over normalized
+throughputs.  ``--scale-job NAME:K`` then asks what happens to *everyone's*
+throughput if job NAME multiplies its worker count by K (cloned machines
+in the same racks, rack uplinks pinned).  ``--export-trace`` writes the
+contended fleet's per-job steps and contention counters.  Its lines are
+the reference's too, and it writes no ledger record.
+
+``--calibrate`` and ``--optimize-placement`` are ROADMAP 1.18b: they
+raise.
 """
 from __future__ import annotations
 
@@ -261,6 +278,224 @@ def ps_cluster_main(args) -> None:
                extra={"predicted": [pred_topo[w] for w in args.workers]})
 
 
+def _fleet_template(layers: int, seed: int, num_ps: int,
+                    size_scale: float = 1.0, compute_scale: float = 1.0):
+    """Synthetic PS-training-shaped step for a fleet job (the perf-bench
+    template family): per layer download -> fwd, then reverse bwd ->
+    upload, layers round-robin over the job's PS shards."""
+    import random as _random
+
+    from repro_torch.core.events import Op, StepTemplate
+    rng = _random.Random(seed)
+
+    def link(kind, i):
+        return kind if num_ps == 1 else f"{kind}:{i % num_ps}"
+
+    ops = []
+    fwd_prev = None
+    for i in range(layers):
+        dl = len(ops)
+        ops.append(Op(f"dl{i}", link("downlink", i),
+                      size=size_scale * rng.uniform(2e6, 3e7)))
+        deps = (dl,) if fwd_prev is None else (dl, fwd_prev)
+        fwd_prev = len(ops)
+        ops.append(Op(f"fwd{i}", "worker",
+                      duration=compute_scale * rng.uniform(.005, .05),
+                      deps=deps))
+    bwd_prev = fwd_prev
+    for i in reversed(range(layers)):
+        bwd = len(ops)
+        ops.append(Op(f"bwd{i}", "worker",
+                      duration=compute_scale * rng.uniform(.01, .08),
+                      deps=(bwd_prev,)))
+        bwd_prev = bwd
+        ops.append(Op(f"ul{i}", link("uplink", i),
+                      size=size_scale * rng.uniform(2e6, 3e7), deps=(bwd,)))
+    return StepTemplate(ops=ops)
+
+
+def load_fleet(path: str):
+    """Parse a fleet job-spec JSON into ``(FleetConfig, steps_by_job)``.
+
+    Schema (see ``examples/fleet.json``): ``bandwidth`` (nominal NIC
+    bytes/s), ``racks`` (name / oversubscription / uplink_capacity),
+    ``nodes`` (name / rack / nic / speed; every machine of the cluster),
+    ``jobs`` (FleetJob fields plus the synthetic-workload knobs
+    ``layers`` / ``size_scale`` / ``compute_scale``)."""
+    import json
+
+    from repro_torch.core.fleet import FleetConfig, FleetJob
+    from repro_torch.core.topology import Node, Placement, Rack, Topology
+    with open(path) as f:
+        spec = json.load(f)
+    for req in ("bandwidth", "nodes", "jobs"):
+        if req not in spec:
+            raise ValueError(f"fleet spec {path!r} is missing {req!r}")
+    racks = tuple(Rack(r["name"],
+                       oversubscription=r.get("oversubscription", 1.0),
+                       uplink_capacity=r.get("uplink_capacity"))
+                  for r in spec.get("racks", ()))
+    nodes = tuple(Node(n["name"], rack=n.get("rack"),
+                       nic=n.get("nic", 1.0), speed=n.get("speed", 1.0))
+                  for n in spec["nodes"])
+    jobs, steps_by_job = [], {}
+    known = {"name", "workers", "ps_hosts", "batch_size",
+             "steps_per_worker", "warmup_steps", "seed", "sync_mode",
+             "backup_workers", "staleness_bound", "allreduce_algo",
+             "collective_k", "layers", "size_scale", "compute_scale"}
+    for jspec in spec["jobs"]:
+        unknown = set(jspec) - known
+        if unknown:
+            raise ValueError(
+                f"fleet job {jspec.get('name', '?')!r}: unknown keys "
+                f"{sorted(unknown)}")
+        kw = {k: v for k, v in jspec.items()
+              if k not in ("layers", "size_scale", "compute_scale")}
+        kw["workers"] = tuple(kw.get("workers", ()))
+        kw["ps_hosts"] = tuple(kw.get("ps_hosts", ()))
+        job = FleetJob(**kw)
+        jobs.append(job)
+        num_ps = max(1, len(job.ps_hosts))
+        if job.sync_mode == "allreduce":
+            num_ps = 1      # PS links are rewritten into collective ops
+        steps_by_job[job.name] = [
+            _fleet_template(jspec.get("layers", 6),
+                            seed=101 * job.seed + s, num_ps=num_ps,
+                            size_scale=jspec.get("size_scale", 1.0),
+                            compute_scale=jspec.get("compute_scale", 1.0))
+            for s in range(3)]
+    # the fleet Topology carries every machine as a worker-capable node;
+    # jobs bind shards by name, so the fleet-level placement is only the
+    # constructor's ps_nodes-or-placement requirement — point it anywhere
+    topo = Topology(workers=nodes, racks=racks,
+                    placement=Placement((nodes[0].name,)),
+                    bandwidth=float(spec["bandwidth"]))
+    return FleetConfig(topology=topo, jobs=tuple(jobs)), steps_by_job
+
+
+def scale_fleet(cfg, name: str, k: int):
+    """The ``--scale-job`` what-if: job ``name`` with K times its workers.
+
+    New workers are cloned machines (same rack / NIC / speed) named
+    ``<src>.x<i>``; rack uplink capacities are PINNED to the original
+    fleet's values first, so added NICs don't silently widen an
+    oversubscribed fabric."""
+    from dataclasses import replace
+
+    from repro_torch.core.fleet import FleetConfig
+    from repro_torch.core.topology import Rack, Topology
+    if k < 1:
+        raise ValueError(f"scale factor must be >= 1, got {k}")
+    j = cfg.job_index(name)
+    job = cfg.jobs[j]
+    if k == 1:
+        return cfg
+    topo = cfg.topology
+    caps = topo.rack_uplink_caps()
+    racks = tuple(Rack(r.name, uplink_capacity=caps[r.name][0])
+                  if r.name in caps else r for r in topo.racks)
+    w0 = len(job.workers)
+    clones, clone_names = [], []
+    for i in range(w0 * (k - 1)):
+        src = topo.node(job.workers[i % w0])
+        clone = replace(src, name=f"{src.name}.x{i}")
+        clones.append(clone)
+        clone_names.append(clone.name)
+    topo2 = Topology(workers=topo.workers + tuple(clones),
+                     ps_nodes=topo.ps_nodes, racks=racks,
+                     placement=topo.placement, bandwidth=topo.bandwidth,
+                     loopback_bypass=topo.loopback_bypass,
+                     loopback_capacity=topo.loopback_capacity)
+    jobs = list(cfg.jobs)
+    jobs[j] = replace(job, workers=job.workers + tuple(clone_names))
+    return FleetConfig(topology=topo2, jobs=tuple(jobs),
+                       record_contention=cfg.record_contention)
+
+
+def fleet_main(args) -> None:
+    from repro_torch.core.fleet import FleetConfig, jain_index
+    from repro_torch.core.sweep import simulate_fleets
+    cfg, steps = load_fleet(args.fleet)
+    scaled_cfg = None
+    if args.scale_job:
+        sname, _, sk = args.scale_job.rpartition(":")
+        if not sname or not sk.isdigit():
+            raise SystemExit(
+                f"--scale-job expects NAME:K, got {args.scale_job!r}")
+        scaled_cfg = scale_fleet(cfg, sname, int(sk))
+
+    def alone(c, j):
+        return FleetConfig(topology=c.topology, jobs=(c.jobs[j],),
+                           record_contention=c.record_contention)
+
+    # one parallel sweep over every fleet run this report needs:
+    # contended + per-job run-alone baselines, for the base fleet and
+    # (when --scale-job) the scaled fleet
+    tasks = [(cfg, steps, True)]
+    tasks += [(alone(cfg, j), {job.name: steps[job.name]}, True)
+              for j, job in enumerate(cfg.jobs)]
+    if scaled_cfg is not None:
+        tasks.append((scaled_cfg, steps, True))
+        tasks += [(alone(scaled_cfg, j), {job.name: steps[job.name]}, True)
+                  for j, job in enumerate(scaled_cfg.jobs)]
+    traces = simulate_fleets(tasks)
+
+    def report(c, contended, alones):
+        tput = contended.throughputs(c)
+        rows, norm = {}, []
+        for j, job in enumerate(c.jobs):
+            a = alones[j].throughputs(alone(c, j))[job.name]
+            t = tput[job.name]
+            share = t / a if a else 0.0
+            norm.append(share)
+            rows[job.name] = (job.num_workers, t, a,
+                              a / t if t else float("inf"), share)
+        return rows, jain_index(norm)
+
+    n = len(cfg.jobs)
+    rows, jain = report(cfg, traces[0], traces[1:1 + n])
+    print(f"# fleet {args.fleet}: {n} jobs on "
+          f"{len(cfg.topology.workers)} nodes, "
+          f"bw={cfg.topology.bandwidth:.3g} B/s")
+    print(f"{'job':>8s} {'W':>3s} {'ex/s':>10s} {'alone':>10s} "
+          f"{'slowdown':>8s} {'share':>6s}")
+    for name, (w, t, a, slow, share) in rows.items():
+        print(f"{name:>8s} {w:3d} {t:10.2f} {a:10.2f} "
+              f"{slow:8.2f} {share:6.3f}")
+    print(f"# jain fairness index = {jain:.4f}")
+    if scaled_cfg is not None:
+        m = len(scaled_cfg.jobs)
+        srows, sjain = report(scaled_cfg, traces[1 + n],
+                              traces[2 + n:2 + n + m])
+        sname = args.scale_job.rpartition(":")[0]
+        w_old = rows[sname][0]
+        w_new = srows[sname][0]
+        print(f"# what-if: job {sname} at {w_new // w_old}x workers "
+              f"({w_old} -> {w_new})")
+        print(f"{'job':>8s} {'W':>3s} {'ex/s':>10s} {'was':>10s} "
+              f"{'delta%':>7s} {'share':>6s}")
+        for name, (w, t, a, slow, share) in srows.items():
+            was = rows[name][1]
+            delta = 100.0 * (t - was) / was if was else 0.0
+            print(f"{name:>8s} {w:3d} {t:10.2f} {was:10.2f} "
+                  f"{delta:+7.1f} {share:6.3f}")
+        print(f"# jain fairness index = {sjain:.4f} (was {jain:.4f})")
+    if args.export_trace:
+        # rerun the contended fleet with contention timelines on; the
+        # counter tracks come from the same LinkTimeline machinery that
+        # feeds meta["contention"] (fig_fleet's timelines)
+        from repro_torch.core.fleet import FleetSimulation
+        from repro_torch.obs.trace_export import (fleet_to_chrome_trace,
+                                            write_chrome_trace)
+        ccfg = FleetConfig(topology=cfg.topology, jobs=cfg.jobs,
+                           record_contention=True)
+        ftr = FleetSimulation(ccfg).run(steps, merged=True)
+        doc = fleet_to_chrome_trace(ftr)
+        write_chrome_trace(doc, args.export_trace)
+        print(f"# exported Chrome trace -> {args.export_trace} "
+              f"({len(doc['traceEvents'])} events; open in ui.perfetto.dev)")
+
+
 def _unported(flag: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"whatif {flag} is not ported yet: ROADMAP "
                                f"{item}")
@@ -291,13 +526,15 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--ps-cluster", action="store_true",
                     help="PS-training what-if over cluster topologies "
                          "instead of the GPU step DAG")
-    # multi-tenant fleet mode (ROADMAP 1.18a)
+    # multi-tenant fleet mode (repro_torch.core.fleet)
     ap.add_argument("--fleet", metavar="JOBS_JSON", default=None,
-                    help="fleet job-spec json (not ported yet: ROADMAP "
-                         "1.18a)")
+                    help="fleet job-spec json: concurrent jobs on one "
+                         "shared topology through the merged fleet engine "
+                         "(see examples/fleet.json)")
     ap.add_argument("--scale-job", metavar="NAME:K", default=None,
                     help="fleet what-if: job NAME with K times its "
-                         "workers (not ported yet: ROADMAP 1.18a)")
+                         "workers (cloned machines, rack uplinks pinned) "
+                         "— reports everyone's throughput delta")
     ap.add_argument("--dnn", default="alexnet")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--cluster-platform", default="private_cpu")
@@ -360,7 +597,9 @@ def build_argparser() -> argparse.ArgumentParser:
                          "exports one seeded DES run at the largest "
                          "worker count (per-worker compute/transmission "
                          "tracks, dependency flow arrows, fault markers, "
-                         "per-link rate counters)")
+                         "per-link rate counters); fleet mode exports "
+                         "per-job step timelines plus the shared fabric's "
+                         "contention counters")
     ap.add_argument("--calibrate", metavar="TRACES", default=None,
                     help="closed-loop mode from a recorded-step trace "
                          "corpus (not ported yet: ROADMAP 1.18b)")
@@ -423,8 +662,6 @@ def main(argv=None) -> None:
     ap = build_argparser()
     args = ap.parse_args(argv)
     check_args(ap, args)
-    if args.fleet:
-        raise _unported("--fleet", "1.18a")
     if args.calibrate:
         raise _unported("--calibrate", "1.18b")
     if args.optimize_placement:
@@ -436,6 +673,9 @@ def main(argv=None) -> None:
     if os.path.isdir(os.path.join("src", "repro_torch")):
         ledger.enable(LEDGER_PATH)
 
+    if args.fleet:
+        fleet_main(args)
+        return
     if args.ps_cluster:
         ps_cluster_main(args)
         return

@@ -4,8 +4,8 @@ from ``repro.obs``.
 Three independent parts, threaded through every engine:
 
   * :mod:`repro_torch.obs.trace_export` — convert any synthetic trace
-    (scalar DES, emulator recording; fleet per-job traces once the fleet
-    engine is ported, ROADMAP 1.18a) into Chrome trace-event JSON
+    (scalar DES, fleet per-job, emulator recording) into Chrome
+    trace-event JSON
     viewable in Perfetto / ``chrome://tracing``: per-worker tracks for
     compute and transmission records, flow arrows for the paper's §3
     dependency structure, instant markers for fault incidents and

@@ -1,10 +1,11 @@
 """The one documented schema for ``trace.meta``.
 
 Every engine that produces a :class:`repro_torch.core.events.Trace` — the
-scalar DES (``core/simulator.py``), and in the reference also the
-lockstep batched engine and the merged / delegated fleet engine (ROADMAP
-1.18a here) — stamps the same required keys; engine-specific extras are
-enumerated below so consumers never have to guess which ad-hoc keys a given run happened to set.
+scalar DES (``core/simulator.py``), the lockstep batched engine
+(``core/batched.py``, including its scalar fallback), and the merged /
+delegated fleet engine (``core/fleet.py``) — stamps the same required
+keys; engine-specific extras are enumerated below so consumers never
+have to guess which ad-hoc keys a given run happened to set.
 
 Required keys (all engines)
 ---------------------------

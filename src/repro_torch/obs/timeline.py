@@ -1,8 +1,8 @@
 """Shared per-link timeline recorder.
 
 One implementation, two consumers: the fleet engine's contention
-timelines (``FleetTrace.meta["contention"]``; the fleet engine is ROADMAP
-1.18a in the port) and the Chrome-trace counter tracks emitted by
+timelines (``FleetTrace.meta["contention"]``, consumed by ``whatif
+--fleet``) and the Chrome-trace counter tracks emitted by
 :mod:`repro_torch.obs.trace_export`.
 
 The recorder is deliberately dumb — an append and a fold — because it

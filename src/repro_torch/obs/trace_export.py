@@ -253,8 +253,8 @@ def timeline_counter_events(timelines: Mapping[str, Sequence[Tuple[float,
 def fleet_to_chrome_trace(fleet_trace, cfg=None) -> dict:
     """A ``FleetTrace`` as one Chrome trace: per-job step-completion
     tracks plus the shared fabric's contention counter tracks (its
-    ``meta["contention"]``).  The fleet engine that makes one is ROADMAP
-    1.18a."""
+    ``meta["contention"]``, which ``core/fleet.py`` records when
+    ``record_contention`` is on)."""
     events: List[dict] = []
     events.append(_meta_event(_GLOBAL_PID, 0, "process_name", "fleet"))
     for j, (name, trace) in enumerate(sorted(fleet_trace.jobs.items())):

@@ -206,12 +206,33 @@ def test_obs_package_exports_the_references_names():
 
 
 def test_fleet_export_waits_for_the_fleet_engine():
-    """``fleet_to_chrome_trace`` is ported with its module; a fleet trace
-    to feed it comes with the fleet engine (ROADMAP 1.18a)."""
-    from repro_torch.core.sweep import simulate_fleets
-    assert callable(port_obs.fleet_to_chrome_trace)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.18a"):
-        simulate_fleets([])
+    """``fleet_to_chrome_trace`` on a fleet trace of the ported fleet
+    engine (``examples/fleet.json`` with contention timelines, 10 steps a
+    worker) is the reference's dict, with and without the config."""
+    import dataclasses
+    import pathlib
+
+    from repro.core.sweep import simulate_fleets as ref_fleets
+    from repro.launch.whatif import load_fleet as ref_load
+    from repro_torch.core.sweep import simulate_fleets as port_fleets
+    from repro_torch.launch.whatif import load_fleet as port_load
+    path = str(pathlib.Path(__file__).resolve().parents[1] / "examples"
+               / "fleet.json")
+    docs = []
+    for load, fleets, export in ((ref_load, ref_fleets, ref_export),
+                                 (port_load, port_fleets, port_export)):
+        cfg, steps = load(path)
+        cfg = dataclasses.replace(cfg, record_contention=True, jobs=tuple(
+            dataclasses.replace(j, steps_per_worker=10, warmup_steps=2)
+            for j in cfg.jobs))
+        assert fleets([]) == []
+        (ft,) = fleets([(cfg, steps, True)], parallel=False)
+        docs.append((export.fleet_to_chrome_trace(ft),
+                     export.fleet_to_chrome_trace(ft, cfg)))
+    assert docs[1] == docs[0]
+    assert port_view.validate_chrome_trace(docs[1][1]) == []
+    assert {e["name"] for e in docs[1][0]["traceEvents"]
+            if e["ph"] == "C"}
 
 
 # ----------------------------------------------------------------- ledger

@@ -405,9 +405,43 @@ def test_gpu_mode_writes_no_ledger_record(tmp_path, monkeypatch, capsys):
     assert not path.exists()
 
 
+FLEET_CLI = {
+    "fleet": [],
+    "scale export": ["--scale-job", "A:3", "--export-trace",
+                     "{tmp}/fleet.json"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLEET_CLI))
+def test_fleet_cli_prints_the_references_lines(case, tmp_path, monkeypatch,
+                                               capsys):
+    """``whatif --fleet examples/fleet.json`` prints the reference's lines,
+    exports the reference's trace bytes and writes no ledger record."""
+    monkeypatch.setenv("REPRO_SWEEP_SERIAL", "1")
+    outs, traces = [], []
+    for name, main, led in (("ref", ref_whatif.main, ref_ledger),
+                            ("port", port_whatif.main, port_ledger)):
+        d = tmp_path / name
+        d.mkdir()
+        monkeypatch.setenv("REPRO_LEDGER", str(d / "ledger.jsonl"))
+        argv = ["--fleet", str(ROOT / "examples" / "fleet.json")] \
+            + [a.format(tmp=d) for a in FLEET_CLI[case]]
+        out = _run_cli(main, argv, monkeypatch, capsys, led)
+        outs.append(out.replace(str(d), "<tmp>").splitlines())
+        assert not (d / "ledger.jsonl").exists()
+        if (d / "fleet.json").exists():
+            traces.append((d / "fleet.json").read_bytes())
+    assert outs[1] == outs[0]
+    assert outs[1][1].split() == ["job", "W", "ex/s", "alone", "slowdown",
+                                  "share"]
+    assert len(outs[1]) == (5 if case == "fleet" else 11)
+    assert len(traces) == (0 if case == "fleet" else 2)
+    assert traces[1:] == traces[:1]
+    if traces:
+        assert validate_chrome_trace(json.loads(traces[1])) == []
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--fleet", "jobs.json"], "1.18a"),
-    (["--fleet", "jobs.json", "--scale-job", "A:2"], "1.18a"),
     (["--ps-cluster", "--calibrate", "traces"], "1.18b"),
     (["--ps-cluster", "--optimize-placement"], "1.18b"),
     (["--ps-cluster", "--optimize-placement", "anneal"], "1.18b")])
@@ -429,16 +463,43 @@ def test_the_references_flag_checks_refuse(argv, capsys):
     assert e.value.code == 2
 
 
+def _small_fleet(pkg):
+    """``examples/fleet.json`` cut to 6 steps a worker."""
+    cfg, steps = pkg[4].load_fleet(str(ROOT / "examples" / "fleet.json"))
+    jobs = tuple(dataclasses.replace(j, steps_per_worker=6, warmup_steps=1)
+                 for j in cfg.jobs)
+    return dataclasses.replace(cfg, jobs=jobs), steps
+
+
 def test_unported_engines_raise_naming_their_item():
+    """Named for what it held until ROADMAP 1.18a was ported: these five
+    calls raised. Now each returns the reference's result; the batched
+    ones return its scalar engine's, which the reference's own batched
+    engine misses in the last bits here (``tests/test_torch_batched.py``,
+    ROADMAP §3)."""
     ref, port = runs("alexnet b8", **CASES["alexnet b8"])
-    tasks = port.prediction_tasks(1, 1)
-    for call in (lambda: port_sweep.simulate_all(tasks, batch=True),
-                 lambda: port_sweep.simulate_batched(tasks),
-                 lambda: port_sweep.predict_many(port, [1], batch=True),
-                 lambda: port_sweep.simulate_fleet_task((None, {}, True)),
-                 lambda: port_cluster.FleetEmulator(None, {})):
-        with pytest.raises(NotImplementedError, match="ROADMAP 1.18a"):
-            call()
+    tasks, rtasks = port.prediction_tasks(1, 3), ref.prediction_tasks(1, 3)
+    assert port_sweep.simulate_all(tasks, batch=True) \
+        == port_sweep.simulate_batched(tasks) \
+        == ref_sweep.simulate_all(rtasks)
+    assert port_sweep.predict_many(port, [1], batch=True) \
+        == ref_sweep.predict_many(ref, [1])
+    assert ref_sweep.predict_many(ref, [1], batch=True) \
+        != ref_sweep.predict_many(ref, [1])
+    (rcfg, rsteps), (pcfg, psteps) = _small_fleet(REF), _small_fleet(PORT)
+    rft = ref_sweep.simulate_fleet_task((rcfg, rsteps, True))
+    pft = port_sweep.simulate_fleet_task((pcfg, psteps, True))
+    assert pft.throughputs(pcfg) == rft.throughputs(rcfg)
+    assert [t.step_completions for t in pft.jobs.values()] \
+        == [t.step_completions for t in rft.jobs.values()]
+    tputs = []
+    for pkg, cfg in ((REF, rcfg), (PORT, pcfg)):
+        wl = dict(dnn=pkg[0].PAPER_DNNS["alexnet"], batch_size=8,
+                  platform=pkg[0].PLATFORMS["private_cpu"])
+        emu = pkg[2].FleetEmulator(cfg, {"A": dict(wl), "B": dict(wl)})
+        emu.run(steps_per_worker=6)
+        tputs.append(emu.throughputs(warmup_steps=1))
+    assert tputs[1] == tputs[0] and all(v > 0 for v in tputs[1].values())
 
 
 def test_core_exports_the_references_names_but_placement_search():
