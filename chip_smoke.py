@@ -265,7 +265,34 @@ for each source, all started together), then
           4 through ``simulate_fleets``'s process pool, equal to the serial
           run; the ``FleetEmulator`` two-job parity case: each job's DES
           throughput within 0.35 of the emulator's, contended no faster
-          than alone.
+          than alone;
+ 16. placement search and closed-loop calibration
+     (``core/placement_search.py``, ``calibrate/``; host Python but for c),
+     its times host seconds:
+       a. ``examples/calibration.md``'s drifted cluster (alexnet, batch 64,
+          ``private_cpu`` with compute 20% slower and the NIC 30% below
+          nominal, observed at W = 3 over 50 steps) saved as a trace corpus
+          in ``build/phase16/`` (removed at the end): the open-loop error
+          over ``DEFAULT_GATE``, ``fit_from_runs`` shrinking it, the digest
+          and both errors beside a CPU host's; the identity profile leaving
+          a DES trace bit-equal; a nominal ``ClosedLoop`` that never
+          recalibrates in 2 rounds and a drifted one that fires in round 0,
+          its ``recalibrated`` ledger record read back; then ``python -m
+          repro_torch.calibrate fit``, ``show`` and ``check`` against the
+          identity profile (exit codes 0, 0, 1) and ``whatif --ps-cluster
+          ... --calibrate`` as serial subprocesses;
+       b. ``tests/test_placement_search.py``'s rack-pool topology at 2
+          shards: greedy equal to the exhaustive oracle, anneal no worse,
+          every strategy over 1.5x the default; the surrogate against the
+          oracle over the PS hosts and on the loopback-bypass topology with
+          colocation; the evaluator's process pool equal to the serial
+          scores over all 49 candidates; ``whatif --ps-cluster ...
+          --optimize-placement greedy`` as a serial subprocess, its three
+          lines equal to a CPU host's (``PLACE_LINES``);
+       c. ``surrogate_scores`` over the 729 candidates of the 3-shard
+          bypass topology, each of its two waterfill problems also solved
+          by ``batched_waterfill(backend="torch")`` on the card: shares
+          within rtol 2e-4 of numpy's and the same top-ranked candidate.
 
 Each result is printed as it comes; the line before the card's name is one
 JSON object with the kernels, and the last line is
@@ -417,6 +444,40 @@ FLEET_LINES = [
     "# jain fairness index = 0.7351 (was 0.9244)",
     "# exported Chrome trace -> ... (4253 events; open in ui.perfetto.dev)"]
 FLEET_PARITY = 0.35     # 15c: DES against emulator, tests/test_fleet.py
+# phase 16a's trace corpus, profiles and ledger, removed when the phase ends
+PHASE16_DIR = ROOT / "build" / "phase16"
+# 16a: examples/calibration.md's drifted cluster (compute 20% slower, NIC
+# 30% below nominal) observed at W = 3 over 50 steps, and the run that
+# predicts it; the fitted digest and both errors the same code gives on a
+# CPU host (printed beside the card host's, not gated: the DES sums floats
+# in numpy)
+CAL_COMPUTE, CAL_NIC, CAL_W, CAL_STEPS = 1.2, 0.7, 3, 50
+CAL_RUN = dict(dnn="alexnet", batch_size=64, platform="private_cpu",
+               profile_steps=10, sim_steps=40, warmup_steps=5)
+CAL_CPU = ("5143346ec49c55b2", 0.3442874353174872, 0.07468418052901432)
+CAL_LOOP_GATE = 0.10    # the walkthrough's ClosedLoop gate
+# the keys of a "recalibrated" ledger record
+RECALIBRATED_KEYS = {"ts", "kind", "config_digest", "predicted", "measured",
+                     "error", "wall_s", "calibration_digest", "err_before",
+                     "round", "corpus_steps"}
+CAL_WHATIF_ARGV = ["--ps-cluster", "--dnn", "alexnet", "--batch", "64",
+                   "--workers", "3", "--profile-steps", "10", "--sim-steps",
+                   "40", "--calibrate"]
+# 16b: tests/test_placement_search.py's rack_pool_topology (its default
+# placement behind an 8x oversubscribed rack) and comm_heavy_steps, then
+# the what-if's placement search and the lines it prints
+PLACE_SHARDS, PLACE_W, PLACE_STEPS, PLACE_SEED = 2, 3, 12, 11
+PLACE_WHATIF_ARGV = ["--ps-cluster", "--dnn", "alexnet", "--batch", "16",
+                     "--workers", "2", "4", "--num-ps", "2", "--oversub",
+                     "4", "--profile-steps", "10", "--sim-steps", "60",
+                     "--optimize-placement", "greedy"]
+PLACE_LINES = ["# placement search (greedy, W=4): 22 candidate placements "
+               "evaluated",
+               "#   default   ps0/ps1: 2.30 ex/s",
+               "#   optimized w1/w0: 7.74 ex/s (3.36x)"]
+# 16c: the surrogate's problems of the 3-shard loopback-bypass topology
+# (9 hosts: 729 candidates), torch on the card against numpy (6d's rtol)
+SURROGATE_SHARDS, SURROGATE_RTOL = 3, 2e-4
 MESH_LOSS_TOL = 1e-5    # 12a: the DTensor path's losses against phase 3's
 DRYRUN_FLOP_TOL = 1e-9  # 13a: traced FLOPs against the real step's
 DRYRUN_PEAK_TOL = 0.10  # 13a: traced peak bytes against 12a's measured one
@@ -860,6 +921,14 @@ def main() -> int:
     fleet_whatif_phase(card)
     mark("15c")
     fleet_phase(card)
+
+    # -- phase 16: placement search and closed-loop calibration --------------
+    mark("16a")
+    calibration_phase(card)
+    mark("16b")
+    placement_phase(card)
+    mark("16c")
+    surrogate_phase(card)
 
     flash_launches = {"train gemma-7b 4 layers x 5 steps":
                       gemma["launches"]["flash_attention"],
@@ -2658,28 +2727,35 @@ def paper_phase(card: str) -> None:
             "the serial run's")
 
 
-def run_whatif(label: str, argv, led: Path, timeout: int):
-    """``python -m repro_torch.launch.whatif argv`` from the checkout's
-    root with its ledger at ``led``, each stdout line printed under
-    ``label``; a non-zero exit fails. Serial (``REPRO_SWEEP_SERIAL=1``):
-    the pool's workers would each re-import the what-if's module, and with
-    it torch (about 50 s of host time on an H100 machine); 14a and 15c
-    hold the pools against serial runs. Returns the stdout lines and the
-    host seconds."""
+def run_module(label: str, module: str, argv, led: Path, timeout: int):
+    """``python -m module argv`` from the checkout's root with its ledger
+    at ``led``, each stdout line printed under ``label``. Serial
+    (``REPRO_SWEEP_SERIAL=1``): the pool's workers would each re-import
+    the module, and with it torch (about 50 s of host time on an H100
+    machine); 14a, 15c and 16b hold the pools against serial runs.
+    Returns the exit code, the stdout lines and the host seconds."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "REPRO_LEDGER": str(led), "REPRO_SWEEP_SERIAL": "1"}
     t0 = time.time()
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.whatif", *argv],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    out = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=timeout)
     seconds = time.time() - t0
     lines = out.stdout.splitlines()
     for line in lines:
         print(f"{label} | {line}")
     if out.returncode:
         print(out.stderr[-4000:], flush=True)
-    require(out.returncode == 0,
-            f"{label}: the what-if exited {out.returncode}")
+    return out.returncode, lines, seconds
+
+
+def run_whatif(label: str, argv, led: Path, timeout: int):
+    """``python -m repro_torch.launch.whatif argv`` through
+    :func:`run_module`; a non-zero exit fails. Returns the stdout lines
+    and the host seconds."""
+    code, lines, seconds = run_module(label, "repro_torch.launch.whatif",
+                                      argv, led, timeout)
+    require(code == 0, f"{label}: the what-if exited {code}")
     return lines, seconds
 
 
@@ -3114,6 +3190,308 @@ def mesh_scan_phase(mesh) -> None:
           f"db {same[2]}", flush=True)
     require(launched == 2 and all(same),
             "12c: the scan on DTensors differs from the plain call")
+
+
+def calibration_phase(card: str) -> None:
+    """16a: ``examples/calibration.md``'s drifted cluster through the
+    calibration package: observe, save the corpus, fit, re-predict; the
+    identity profile's inertness; a nominal and a drifted ``ClosedLoop``
+    with the ledger on; then the calibration CLI and ``whatif
+    --calibrate`` as a user runs them."""
+    from dataclasses import replace
+
+    from repro_torch.calibrate.extract import load_trace_runs, save_traces
+    from repro_torch.calibrate.loop import (DEFAULT_GATE, ClosedLoop,
+                                            fit_from_runs, identity_profile)
+    from repro_torch.core.paper_models import PAPER_DNNS, PLATFORMS
+    from repro_torch.core.predictor import PredictionRun, prediction_error
+    from repro_torch.core.simulator import Simulation
+    from repro_torch.emulator.cluster import observe_run
+    from repro_torch.obs import ledger, report
+    shutil.rmtree(PHASE16_DIR, ignore_errors=True)
+    traces = PHASE16_DIR / "traces"
+    try:
+        t0 = time.time()
+        nominal = PLATFORMS[CAL_RUN["platform"]]
+        drifted = replace(nominal,
+                          worker_flops=nominal.worker_flops / CAL_COMPUTE,
+                          ps_update_bw=nominal.ps_update_bw / CAL_COMPUTE,
+                          bandwidth=nominal.bandwidth * CAL_NIC)
+        run = PredictionRun(**CAL_RUN).prepare()
+        dnn = PAPER_DNNS[CAL_RUN["dnn"]]
+        measured, steps = observe_run(dnn, CAL_RUN["batch_size"], drifted,
+                                      num_workers=CAL_W, steps=CAL_STEPS,
+                                      warmup_steps=CAL_STEPS)
+        save_traces(str(traces / "run0.json"), steps)
+        open_loop = run.predict(CAL_W)
+        prof = fit_from_runs(load_trace_runs(str(traces)), run=run)
+        fitted = run.with_calibration(prof).predict(CAL_W)
+        errs = (prediction_error(open_loop, measured),
+                prediction_error(fitted, measured))
+        print(f"16a {CAL_RUN['dnn']} batch {CAL_RUN['batch_size']} on "
+              f"{CAL_RUN['platform']} drifted (compute x{CAL_COMPUTE}, NIC "
+              f"x{CAL_NIC}), W = {CAL_W}: measured {measured!r} ex/s, "
+              f"open loop {open_loop!r} (error {errs[0]!r}), fitted "
+              f"{fitted!r} (error {errs[1]!r}); profile {prof.digest}, "
+              f"{prof.sample_counts}; on a CPU host: profile {CAL_CPU[0]}, "
+              f"errors {CAL_CPU[1]!r} -> {CAL_CPU[2]!r}, equal "
+              f"{(prof.digest, *errs) == CAL_CPU}; {time.time() - t0:.2f} "
+              f"host seconds (host time; card {card})", flush=True)
+        require(errs[0] > DEFAULT_GATE, "16a: the drifted cluster's "
+                "open-loop error is under the gate")
+        require(errs[1] < errs[0], "16a: the fit does not shrink the error")
+
+        def trace_of(r):
+            cfg, tpls, w, _b, _warm = r.prediction_tasks(CAL_W, 1)[0]
+            cfg.record_trace = True
+            return Simulation(cfg).run(tpls, w)
+        ident = identity_profile(run)
+        plain, cal = trace_of(run), trace_of(run.with_calibration(ident))
+        inert = (plain.step_completions == cal.step_completions
+                 and [(r.name, r.start, r.end) for r in plain.records]
+                 == [(r.name, r.start, r.end) for r in cal.records])
+        print(f"16a identity profile {ident.digest}: DES trace of "
+              f"{len(cal.records)} records bit-equal {inert}, digest "
+              f"stamped {cal.meta.get('calibration_digest') == ident.digest}",
+              flush=True)
+        require(inert and cal.meta.get("calibration_digest") == ident.digest,
+                "16a: the identity profile moves the DES")
+
+        t0 = time.time()
+        nominal_loop = ClosedLoop(run=run, num_workers=2, n_runs=1)
+        for _ in range(2):
+            nominal_loop.round()
+        led = PHASE16_DIR / "ledger.jsonl"
+
+        def observe(r, w):
+            return observe_run(PAPER_DNNS[r.dnn], r.batch_size, drifted, w,
+                               steps=CAL_STEPS, warmup_steps=CAL_STEPS)
+        ledger.enable(str(led))
+        try:
+            drift_loop = ClosedLoop(run=run, num_workers=CAL_W,
+                                    observe=observe, gate=CAL_LOOP_GATE)
+            for _ in range(2):
+                drift_loop.round()
+        finally:
+            ledger.disable()
+        recs = [r for r in ledger.read(str(led))
+                if r["kind"] == "recalibrated"]
+        first = drift_loop.history[0]
+        print(f"16a ClosedLoop nominal W = 2, 2 rounds: errors "
+              f"{nominal_loop.errors()}, recalibrated "
+              f"{[h.recalibrated for h in nominal_loop.history]}; drifted W "
+              f"= {CAL_W} gate {CAL_LOOP_GATE}: errors "
+              f"{drift_loop.errors()}, recalibrated "
+              f"{[h.recalibrated for h in drift_loop.history]}, round 0 "
+              f"{first.err_before!r} -> {first.err_after!r} profile "
+              f"{first.profile_digest}; ledger records {len(recs)} "
+              f"recalibrated, report {report.summarize(recs)}; "
+              f"{time.time() - t0:.2f} host seconds (host time; card "
+              f"{card})", flush=True)
+        require(not any(h.recalibrated for h in nominal_loop.history),
+                "16a: the nominal platform recalibrated")
+        require(first.recalibrated and first.err_after < first.err_before,
+                "16a: the drifted loop did not refit in round 0")
+        require(len(recs) == sum(h.recalibrated for h in drift_loop.history)
+                and all(set(r) == RECALIBRATED_KEYS for r in recs)
+                and recs[0]["calibration_digest"] == first.profile_digest
+                and recs[0]["round"] == 0
+                and recs[0]["err_before"] == first.err_before,
+                "16a: the recalibrated ledger record is not the round's")
+
+        fitted_path, ident_path = (PHASE16_DIR / "profile.json",
+                                   PHASE16_DIR / "identity.json")
+        ident.save(str(ident_path))
+        runs = [run_module("16a", "repro_torch.calibrate", argv,
+                           PHASE16_DIR / "cli.jsonl", 300)
+                for argv in (["fit", str(traces), "--platform",
+                              CAL_RUN["platform"], "-o", str(fitted_path)],
+                             ["show", str(fitted_path)],
+                             ["check", str(fitted_path), str(ident_path)])]
+        codes, wrote = [r[0] for r in runs], runs[0][1]
+        seconds = sum(r[2] for r in runs)
+        lines, s = run_whatif("16a", [*CAL_WHATIF_ARGV, str(traces)],
+                              PHASE16_DIR / "whatif.jsonl", timeout=300)
+        seconds += s
+        want = (f"# calibration: {traces} -> profile {prof.digest} "
+                f"({len(steps)} steps, {len(prof.op_times)} ops, "
+                f"{len(prof.link_capacity)} links)")
+        print(f"16a python -m repro_torch.calibrate fit / show / check: exit "
+              f"codes {codes}; whatif --calibrate: exit 0, its calibration "
+              f"line the fit's {lines[:1] == [want]}; {seconds:.2f} host "
+              f"seconds, 4 processes (host time; card {card})", flush=True)
+        require(codes == [0, 0, 1], "16a: the calibration CLI's exit codes "
+                "are not 0, 0, 1")
+        require(wrote == [f"wrote {fitted_path} (digest {prof.digest}, "
+                          f"{len(steps)} steps)"],
+                "16a: the CLI's fit is not the in-process fit")
+        require(lines[:1] == [want],
+                "16a: whatif --calibrate's profile is not the fit's")
+    finally:
+        shutil.rmtree(PHASE16_DIR, ignore_errors=True)
+
+
+def rack_pool_topology(num_shards: int, oversub: float = 8.0,
+                       bypass: bool = False):
+    """``tests/test_placement_search.py``'s topology: the default placement
+    behind an oversubscribed rack uplink, as many free nodes in the flat
+    rack (``bypass``: its ``bypass_topology``, colocated conns skipping
+    the NIC and rack groups)."""
+    from repro_torch.core.topology import Node, Rack, Topology
+    bad = tuple(Node(f"bad{p}", rack="r0") for p in range(num_shards))
+    good = tuple(Node(f"good{p}", rack="r1") for p in range(num_shards))
+    return Topology(
+        workers=tuple(Node(f"w{i}", rack="r1") for i in range(3)),
+        ps_nodes=bad + good,
+        racks=(Rack("r0", oversubscription=oversub), Rack("r1")),
+        bandwidth=1e2, loopback_bypass=bypass,
+    ).with_placement(tuple(n.name for n in bad))
+
+
+def placement_evaluator(topo, parallel: bool = True):
+    """The reference test's evaluator: ``comm_heavy_steps`` (3 layers of
+    200-byte pulls and pushes round-robin over the shards, 0.02 s of
+    compute) at W = 3, one run of 12 steps a worker, FIFO links."""
+    from repro_torch.core.events import Op, StepTemplate
+    from repro_torch.core.placement_search import evaluator_from_templates
+    m, ops = topo.num_shards, []
+    for i in range(3):
+        dn = "downlink" if m == 1 else f"downlink:{i % m}"
+        up = "uplink" if m == 1 else f"uplink:{i % m}"
+        dl = len(ops)
+        ops.append(Op(f"d{i}", dn, size=200.0))
+        ops.append(Op(f"f{i}", "worker", duration=0.02, deps=(dl,)))
+        ops.append(Op(f"u{i}", up, size=200.0, deps=(dl + 1,)))
+    return evaluator_from_templates(
+        topo, [StepTemplate(ops=ops)], num_workers=PLACE_W, n_runs=1,
+        steps_per_worker=PLACE_STEPS, link_policy="fifo", parallel=parallel)
+
+
+def placement_phase(card: str) -> None:
+    """16b: every strategy on the reference test's rack-pool topology, the
+    surrogate against the oracle where the reference gates it, the
+    evaluator's process pool against its serial run, then ``whatif
+    --optimize-placement`` as a user runs it."""
+    import itertools
+
+    from repro_torch.core.placement_search import search_placement
+    topo = rack_pool_topology(PLACE_SHARDS)
+    t0 = time.time()
+    os.environ["REPRO_SWEEP_SERIAL"] = "1"
+    try:
+        with placement_evaluator(topo) as ev:
+            res = {s: search_placement(ev, s, seed=PLACE_SEED)
+                   for s in ("exhaustive", "greedy", "anneal")}
+            cands = list(itertools.product(ev.candidate_hosts(),
+                                           repeat=PLACE_SHARDS))
+            serial = ev.score_many(cands)
+        ps_hosts = tuple(n.name for n in topo.ps_nodes)
+        bypass = rack_pool_topology(PLACE_SHARDS, bypass=True)
+        sur = {}
+        for name, t, hosts in (("ps hosts", topo, ps_hosts),
+                               ("bypass, colocated", bypass, None)):
+            sur[name] = [search_placement(placement_evaluator(t), s,
+                                          hosts=hosts)
+                         for s in ("exhaustive", "surrogate")]
+    finally:
+        del os.environ["REPRO_SWEEP_SERIAL"]
+    t_serial = time.time() - t0
+    t0 = time.time()
+    with placement_evaluator(topo, parallel=True) as ev:
+        pooled = ev.score_many(cands)
+    t_pool = time.time() - t0
+    for s, r in res.items():
+        print(f"16b {r.summary()}, rounds {r.rounds}", flush=True)
+    for name, (exact, proxy) in sur.items():
+        print(f"16b surrogate on {name}: {proxy.summary()}; oracle "
+              f"{'/'.join(exact.placement)} {exact.throughput!r}", flush=True)
+    print(f"16b {len(cands)} candidates scored through the pool equal to "
+          f"the serial scores {pooled == serial}; host seconds serial "
+          f"searches {t_serial:.2f}, pool {t_pool:.2f} (host time; card "
+          f"{card})", flush=True)
+    exact, greedy, anneal = (res[s] for s in ("exhaustive", "greedy",
+                                              "anneal"))
+    require(greedy.placement == exact.placement
+            and greedy.throughput == exact.throughput,
+            "16b: greedy does not find the oracle's placement")
+    require(anneal.throughput >= greedy.throughput,
+            "16b: anneal is worse than greedy")
+    require(all(r.throughput > 1.5 * r.baseline_throughput
+                for r in res.values()),
+            "16b: a search does not escape the oversubscribed default")
+    require(all(p.placement == e.placement or p.throughput == e.throughput
+                for e, p in sur.values()),
+            "16b: the surrogate's choice is not the oracle's")
+    require(pooled == serial, "16b: the pool's scores differ from the "
+            "serial run's")
+    PHASE16_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        lines, seconds = run_whatif("16b", PLACE_WHATIF_ARGV,
+                                    PHASE16_DIR / "l.jsonl", timeout=300)
+    finally:
+        shutil.rmtree(PHASE16_DIR, ignore_errors=True)
+    print(f"16b what-if --optimize-placement greedy: exit 0 in "
+          f"{seconds:.2f} host seconds (host time; card {card}); its three "
+          f"lines equal to the CPU host's {lines[-3:] == PLACE_LINES}",
+          flush=True)
+    require(lines[-3:] == PLACE_LINES, "16b: the placement what-if's lines "
+            "differ from the CPU host's")
+
+
+def surrogate_phase(card: str) -> None:
+    """16c: ``surrogate_scores`` over every candidate of the 3-shard bypass
+    topology with colocation, its waterfill problems solved on the card
+    (``batched_waterfill(backend="torch")``) against numpy: shares within
+    6d's rtol, the same top-ranked candidate."""
+    import itertools
+
+    import numpy as np
+    from repro_torch.core import placement_search
+    topo = rack_pool_topology(SURROGATE_SHARDS, bypass=True)
+    ev = placement_evaluator(topo, parallel=False)
+    cands = list(itertools.product(ev.candidate_hosts(),
+                                   repeat=SURROGATE_SHARDS))
+    numpy_fill = placement_search.batched_waterfill
+    solved, seconds = [], {"numpy": 0.0, "torch": 0.0}
+
+    def on_card(caps, members, weights):
+        """The surrogate's call, solved by both backends."""
+        t0 = time.perf_counter()
+        want = numpy_fill(caps, members, weights)
+        seconds["numpy"] += time.perf_counter() - t0
+        numpy_fill(caps, members, weights, backend="torch")   # warm-up
+        t0 = time.perf_counter()
+        got = numpy_fill(caps, members, weights, backend="torch",
+                         device="cuda")
+        seconds["torch"] += time.perf_counter() - t0
+        solved.append((members.shape, want, got))
+        return got
+    t0 = time.time()
+    want = placement_search.surrogate_scores(ev, cands)
+    t_np = time.time() - t0
+    placement_search.batched_waterfill = on_card
+    try:
+        got = placement_search.surrogate_scores(ev, cands)
+    finally:
+        placement_search.batched_waterfill = numpy_fill
+    ok = all(np.allclose(g, w, rtol=SURROGATE_RTOL, atol=1e-12)
+             for _, w, g in solved)
+    err = max(float(np.abs(g - w).max()) for _, w, g in solved)
+    top = (int(np.argmax(want)), int(np.argmax(got)))
+    print(f"16c surrogate of {len(cands)} candidates ({SURROGATE_SHARDS} "
+          f"shards over {len(ev.candidate_hosts())} hosts, bypass): "
+          f"{len(solved)} phases of problems {[s for s, _, _ in solved]}; "
+          f"shares max_abs_err {err:.3e} (rtol {SURROGATE_RTOL}) "
+          f"{'ok' if ok else 'FAIL'}; top candidate numpy "
+          f"{'/'.join(cands[top[0]])}, card {'/'.join(cands[top[1]])}; "
+          f"seconds numpy {seconds['numpy']:.4f}, torch on the card "
+          f"{seconds['torch']:.4f} (host clock, copies included), the "
+          f"whole numpy surrogate {t_np:.3f} (host time; card {card})",
+          flush=True)
+    require(ok, "16c: the card's waterfill disagrees with numpy on the "
+            "surrogate's problems")
+    require(top[0] == top[1] and np.allclose(got, want, rtol=SURROGATE_RTOL),
+            "16c: the card's surrogate ranks another candidate first")
 
 
 def mark(phase: str) -> None:

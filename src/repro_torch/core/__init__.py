@@ -5,10 +5,11 @@ throughput prediction (Li et al., ICPE'20), the PS-cluster pipeline
 against), plus the GPU step DAG (``gpu_adapter``) and the FLOP count of a
 PyTorch step that calibrates it (``flop_count``).
 
-The lockstep batched engine (``batched``) and the multi-tenant fleet
-engine (``fleet``) are ported; like the reference, the package does not
-re-export their names.  Placement search and calibration (ROADMAP 1.18b)
-are not ported yet."""
+Placement search (``placement_search``: the predictor as an optimizer of
+shard->node placements) is re-exported as the reference re-exports it; the
+lockstep batched engine (``batched``) and the multi-tenant fleet engine
+(``fleet``) are not, as in the reference.  Closed-loop calibration is the
+sibling package ``repro_torch.calibrate``."""
 from .bandwidth import (BandwidthModel, EqualShareModel,
                         GroupedBandwidthModel, IncrementalWaterfill,
                         batched_waterfill, stack_waterfill_problems,
@@ -18,6 +19,9 @@ from .events import (COMPUTE, LINK, Op, ResourceSpec, StepTemplate, Trace,
 from .overhead import (OverheadModel, RecordedOp, RecordedStep,
                        preprocess_profile, preprocess_recorded_step)
 from .paper_models import PAPER_DNNS, PLATFORMS
+from .placement_search import (PlacementEvaluator, SearchResult,
+                               evaluator_from_run, evaluator_from_templates,
+                               search_placement)
 from .collectives import allreduce_duration, ring_volume
 from .predictor import PredictionRun, calibrate_overhead, prediction_error
 from .simulator import SimConfig, Simulation, predict_throughput
@@ -41,6 +45,8 @@ __all__ = [
     "calibrate_overhead", "prediction_error", "SimConfig",
     "Simulation", "predict_throughput",
     "Node", "Placement", "Rack", "Topology", "TopologyBandwidthModel",
+    "PlacementEvaluator", "SearchResult", "evaluator_from_run",
+    "evaluator_from_templates", "search_placement",
     "measure_many", "parallel_map", "predict_many", "sweep_parallel",
     "SYNC_MODES", "SyncSpec", "allreduce_templates", "make_controller",
     "staleness_stats", "allreduce_duration", "ring_volume",

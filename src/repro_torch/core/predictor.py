@@ -75,12 +75,11 @@ class PredictionRun:
     # engine and the emulator (both keyed off spec.fault_seed), so
     # prediction and ground truth see identical churn.
     faults: Optional["FaultSpec"] = None
-    # Fitted parameters from observed traces (the reference's
-    # ``repro.calibrate``; fitting is ROADMAP 1.18b here, and any object
-    # with its ``apply_to_templates`` / ``overhead_model`` /
-    # ``capacity_for`` / ``digest`` interface is accepted).  None =
-    # predict from the profile + platform nominals alone (the paper's
-    # open-loop mode).  A profile overrides per-op compute times and
+    # Fitted parameters from observed traces (``repro_torch.calibrate``'s
+    # ``CalibrationProfile``; any object with its ``apply_to_templates`` /
+    # ``overhead_model`` / ``capacity_for`` / ``digest`` interface is
+    # accepted).  None = predict from the profile + platform nominals
+    # alone (the paper's open-loop mode).  A profile overrides per-op compute times and
     # parse alpha/beta in the preprocessed templates, and per-link
     # capacities / the flow-control stall rate in the sim config; a
     # profile whose values equal the profiled medians and nominals is

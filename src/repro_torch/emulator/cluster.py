@@ -965,7 +965,7 @@ def observe_run(dnn: DnnSpec, batch_size: int, platform: Platform,
     """One observed run for the calibration loop: ground-truth
     throughput **plus** the TF-style recorded steps it was measured from
     (``measure_throughput`` discards them).  The calibration loop
-    (ROADMAP 1.18b) feeds the steps to the fitter and compares predictions
+    (``repro_torch.calibrate.loop``) feeds the steps to the fitter and compares predictions
     to the throughput — predict → execute → compare → refit."""
     emu = ClusterEmulator(dnn, batch_size, platform, num_workers=num_workers,
                           num_ps=num_ps, seed=seed, flow_control=flow_control,

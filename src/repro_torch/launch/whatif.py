@@ -64,8 +64,19 @@ in the same racks, rack uplinks pinned).  ``--export-trace`` writes the
 contended fleet's per-job steps and contention counters.  Its lines are
 the reference's too, and it writes no ledger record.
 
-``--calibrate`` and ``--optimize-placement`` are ROADMAP 1.18b: they
-raise.
+Two further PS-cluster what-ifs close the paper's §6 scheduler loop, as in
+the reference:
+
+  * ``--optimize-placement [greedy|exhaustive|anneal]`` searches
+    shard->node mappings of the topology
+    (``repro_torch.core.placement_search``) and reports the chosen
+    placement and its predicted speedup over the topology's default
+    placement;
+  * ``--calibrate traces/`` fits a ``CalibrationProfile`` from a
+    recorded-step trace corpus (``repro_torch.calibrate``; the reference's
+    corpus files load too) and predicts with the fitted per-op times /
+    link capacities instead of the profiled templates and platform
+    nominals: the closed calibration loop.
 """
 from __future__ import annotations
 
@@ -203,6 +214,18 @@ def ps_cluster_main(args) -> None:
                          staleness_bound=args.staleness_bound,
                          allreduce_algo=args.allreduce_algo,
                          waterfill=args.waterfill).prepare()
+    if args.calibrate:
+        # closed-loop mode: override the profiled templates and platform
+        # nominals with parameters fitted from observed traces
+        from repro_torch.calibrate.extract import load_trace_runs
+        from repro_torch.calibrate.loop import fit_from_runs
+        prof = fit_from_runs(load_trace_runs(args.calibrate), run=base)
+        base = base.with_calibration(prof)
+        counts = prof.sample_counts
+        print(f"# calibration: {args.calibrate} -> profile "
+              f"{prof.digest} ({counts.get('steps', 0)} steps, "
+              f"{len(prof.op_times)} ops, "
+              f"{len(prof.link_capacity)} links)")
     topo = build_whatif_topology(wmax, args.num_ps, oversub=args.oversub,
                                  racks=args.racks, ps_nic=args.ps_nic,
                                  colocate_ps=args.colocate_ps)
@@ -261,6 +284,9 @@ def ps_cluster_main(args) -> None:
             print(f"{w:3d} {r['throughput']:10.2f} {r['goodput']:10.2f} "
                   f"{int(r['incidents']):6d} {r['mean_recovery_s']:8.2f} "
                   f"{100.0 * r['wasted_work_frac']:8.2f}")
+    if args.optimize_placement:
+        optimize_placement_report(base, topo, wmax,
+                                  strategy=args.optimize_placement)
     if args.export_trace:
         run_t = base.with_topology(topo)
         if fault_spec is not None:
@@ -276,6 +302,24 @@ def ps_cluster_main(args) -> None:
                        "workers": list(args.workers)},
                engine="scalar",
                extra={"predicted": [pred_topo[w] for w in args.workers]})
+
+
+def optimize_placement_report(base, topo, num_workers: int,
+                              strategy: str = "greedy"):
+    """Search shard->node mappings of ``topo`` at ``num_workers`` workers
+    and print (and return) the chosen placement vs the topology's
+    default."""
+    from repro_torch.core.placement_search import (evaluator_from_run,
+                                                   search_placement)
+    with evaluator_from_run(base, topo, num_workers) as ev:
+        res = search_placement(ev, strategy)
+    print(f"# placement search ({strategy}, W={num_workers}): "
+          f"{res.evaluated} candidate placements evaluated")
+    print(f"#   default   {'/'.join(res.baseline_placement)}: "
+          f"{res.baseline_throughput:.2f} ex/s")
+    print(f"#   optimized {'/'.join(res.placement)}: "
+          f"{res.throughput:.2f} ex/s ({res.speedup:.2f}x)")
+    return res
 
 
 def _fleet_template(layers: int, seed: int, num_ps: int,
@@ -496,11 +540,6 @@ def fleet_main(args) -> None:
               f"({len(doc['traceEvents'])} events; open in ui.perfetto.dev)")
 
 
-def _unported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"whatif {flag} is not ported yet: ROADMAP "
-                               f"{item}")
-
-
 # the run ledger's file when the what-if runs from the repo root
 LEDGER_PATH = os.path.join("build", "ledger.jsonl")
 
@@ -567,8 +606,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--optimize-placement", nargs="?", const="greedy",
                     default=None,
                     choices=["greedy", "exhaustive", "anneal"],
-                    help="search PS shard placements (not ported yet: "
-                         "ROADMAP 1.18b)")
+                    help="search PS shard placements of the topology and "
+                         "report the best one (default strategy: greedy)")
     # failure / churn what-ifs (repro_torch.core.faults; PS-cluster mode)
     ap.add_argument("--mttf", type=float, default=0.0,
                     help="mean time to failure per worker in simulated "
@@ -601,8 +640,10 @@ def build_argparser() -> argparse.ArgumentParser:
                          "per-job step timelines plus the shared fabric's "
                          "contention counters")
     ap.add_argument("--calibrate", metavar="TRACES", default=None,
-                    help="closed-loop mode from a recorded-step trace "
-                         "corpus (not ported yet: ROADMAP 1.18b)")
+                    help="closed-loop mode: fit a CalibrationProfile from "
+                         "a recorded-step trace file or directory "
+                         "(repro.calibrate trace json) and predict with "
+                         "it (PS-cluster mode)")
     ap.add_argument("--profile-steps", type=int, default=30)
     ap.add_argument("--sim-steps", type=int, default=250)
     ap.add_argument("--waterfill", default="auto",
@@ -662,10 +703,6 @@ def main(argv=None) -> None:
     ap = build_argparser()
     args = ap.parse_args(argv)
     check_args(ap, args)
-    if args.calibrate:
-        raise _unported("--calibrate", "1.18b")
-    if args.optimize_placement:
-        raise _unported("--optimize-placement", "1.18b")
 
     # run ledger: what-if runs append to build/ledger.jsonl when launched
     # from the repo root (REPRO_LEDGER still overrides; =0 disables)

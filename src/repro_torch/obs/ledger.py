@@ -12,9 +12,11 @@ and solver stats, wall time, predicted throughput and — when both the
 DES prediction and the emulator measurement ran — the prediction error.
 ``python -m repro_torch.obs.report`` renders per-figure error bands off this
 file and compares two ledgers for drift — the detection half of
-closed-loop calibration.  The calibration loop that closes it (refit a
-``CalibrationProfile`` when the drift gate fires and append a
-``"recalibrated"`` record) is not ported yet: ROADMAP 1.18b.
+closed-loop calibration.  ``repro_torch.calibrate.loop`` closes it: when
+the drift gate fires it refits a ``CalibrationProfile`` from accumulated
+traces, re-predicts, and appends a ``"recalibrated"`` record (extra keys
+``calibration_digest``, pre/post errors) so the ledger itself narrates
+every parameter change.
 """
 from __future__ import annotations
 

@@ -32,8 +32,8 @@ Optional keys
   contention        fleet meta only: per-link (t, active) timelines
   calibration_digest
                     digest of the CalibrationProfile the run's config
-                    was built from (the reference's ``calibrate``,
-                    ROADMAP 1.18b here; absent on open-loop runs)
+                    was built from (``repro_torch.calibrate``; absent
+                    on open-loop runs)
 """
 from __future__ import annotations
 

@@ -445,10 +445,36 @@ def test_fleet_cli_prints_the_references_lines(case, tmp_path, monkeypatch,
     (["--ps-cluster", "--calibrate", "traces"], "1.18b"),
     (["--ps-cluster", "--optimize-placement"], "1.18b"),
     (["--ps-cluster", "--optimize-placement", "anneal"], "1.18b")])
-def test_unported_whatif_modes_raise_naming_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        port_whatif.main(argv)
-    assert port_ledger.resolve_path() is None
+def test_unported_whatif_modes_raise_naming_their_item(argv, item, tmp_path,
+                                                      monkeypatch, capsys):
+    """Named for what it held until ROADMAP 1.18b was ported: these three
+    modes raised. Now each prints the reference's lines, its own first
+    (``# calibration:``) or last (``# placement search``)."""
+    monkeypatch.setenv("REPRO_SWEEP_SERIAL", "1")
+    corpus = tmp_path / "traces"
+    _m, steps = port_cluster.observe_run(
+        port_pm.PAPER_DNNS["alexnet"], 8, port_pm.PLATFORMS["private_cpu"],
+        2, steps=12, warmup_steps=2)
+    from repro_torch.calibrate.extract import save_traces
+    save_traces(str(corpus / "run0.json"), steps)
+    argv = [str(corpus) if a == "traces" else a for a in argv] + [
+        "--workers", "2", "--profile-steps", "10", "--sim-steps", "30"]
+    outs = []
+    for name, main, led in (("ref", ref_whatif.main, ref_ledger),
+                            ("port", port_whatif.main, port_ledger)):
+        monkeypatch.setenv("REPRO_LEDGER", str(tmp_path / f"{name}.jsonl"))
+        outs.append(_run_cli(main, argv, monkeypatch, capsys, led)
+                    .splitlines())
+    assert outs[1] == outs[0]
+    if "--calibrate" in argv:
+        assert outs[1][0].startswith(f"# calibration: {corpus} -> profile ")
+    else:
+        assert outs[1][-3].startswith("# placement search (")
+    recs = [[{k: v for k, v in r.items() if k != "ts"}
+             for r in led.read(str(tmp_path / f"{name}.jsonl"))]
+            for name, led in (("ref", ref_ledger), ("port", port_ledger))]
+    assert recs[1] == recs[0] and recs[1][-1]["figure"] == "whatif_ps"
+    assert item == "1.18b"
 
 
 @pytest.mark.parametrize("argv", [
@@ -456,7 +482,10 @@ def test_unported_whatif_modes_raise_naming_their_item(argv, item):
     ["--sync-mode", "sync"], ["--mttf", "5"], ["--export-trace", "x.json"],
     ["--ps-cluster", "--backup-workers", "1"],
     ["--ps-cluster", "--staleness-bound", "1", "--sync-mode", "sync"],
-    ["--ps-cluster", "--straggler-worker", "0.5"]])
+    ["--ps-cluster", "--straggler-worker", "0.5"],
+    ["--calibrate", "traces"], ["--optimize-placement"],
+    ["--ps-cluster", "--optimize-placement", "--sync-mode", "allreduce"],
+    ["--ps-cluster", "--optimize-placement", "ilp"]])
 def test_the_references_flag_checks_refuse(argv, capsys):
     with pytest.raises(SystemExit) as e:
         port_whatif.main(argv)
@@ -503,11 +532,14 @@ def test_unported_engines_raise_naming_their_item():
 
 
 def test_core_exports_the_references_names_but_placement_search():
+    """Named for what it held until ROADMAP 1.18b was ported: the port's
+    core lacked the placement-search names. Now it exports all of the
+    reference's."""
     import repro.core
     import repro_torch.core
     placement = {"PlacementEvaluator", "SearchResult", "evaluator_from_run",
                  "evaluator_from_templates", "search_placement"}
-    assert set(repro.core.__all__) - set(repro_torch.core.__all__) \
-        == placement
+    assert set(repro.core.__all__) - set(repro_torch.core.__all__) == set()
+    assert placement <= set(repro_torch.core.__all__)
     for name in repro_torch.core.__all__:
         assert hasattr(repro_torch.core, name)
