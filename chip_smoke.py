@@ -21,9 +21,12 @@ for each source, all started together), then
      arctic-480b's attention (1, 2048, 56, 8, 128: 7 query heads a kv
      head) and whisper-small's decoder (8, 512, 12, 12, 64), at
      llama-3.2-vision-90b's prefill shape (1, 32768, 64, 8, 128) on its
-     first and last 512 rows as at the prefill shape, and each autograd
-     op's gradients against plain autograd, the scan's also at its path
-     shape (forward and the kernel's reverse mode);
+     first and last 512 rows as at the prefill shape, at ``SLICE``'s
+     shape one sequence shard of S / 16 queries at a time at its own
+     query offset (shards 0, 7 and 15, and 7 with a window; fp32 and bf16)
+     against the plain version and the full sequence's rows, and each
+     autograd op's gradients against plain autograd, the scan's also at
+     its path shape (forward and the kernel's reverse mode);
   2. checks each model on the card against itself with the kernels off
      (gemma-7b smoke config with head_dim 64 in fp32 and head_dim 256 in
      bf16, recurrentgemma-2b smoke in fp32, and whisper-small smoke with
@@ -217,12 +220,16 @@ for each source, all started together), then
           ``max_memory_allocated`` (the ratio printed);
        b. the production cells gemma-7b ``train_4k``, ``prefill_32k`` and
           ``decode_32k`` on 16 x 16, gemma-7b ``train_4k`` on 2 x 16 x 16,
-          arctic-480b and llama-3.2-vision-90b ``train_4k`` on 16 x 16
-          through ``dryrun_cell``: each ``ok``, with its bytes and FLOPs a
-          device, collective wire bytes by kind, the three roofline terms
-          under the H100 SXM5 constants, the bottleneck, ``mfu_bound`` and
-          the trace's seconds; each train cell's ``useful_flops_ratio`` at
-          most 1; and xlstm-350m ``train_4k`` on 16 x 16, whose sLSTM /
+          arctic-480b, llama-3.2-vision-90b and phi4-mini-3.8b ``train_4k``
+          on 16 x 16 through ``dryrun_cell``: each ``ok``, with its bytes
+          and FLOPs a device, collective wire bytes by kind, the three
+          roofline terms under the H100 SXM5 constants, the bottleneck,
+          ``mfu_bound`` and the trace's seconds; each train cell's
+          ``useful_flops_ratio`` at most 1; bytes and FLOPs a device beside
+          the counts before the reference's attention layout
+          (``DRYRUN_BEFORE``): arctic-480b's and llama-3.2-vision-90b's
+          below them, gemma-7b's equal; and xlstm-350m ``train_4k`` on 16 x
+          16, whose sLSTM /
           mLSTM time loop is traced at S = 16 and 32 and extrapolated to
           4096 (its record's ``extrapolated`` key printed);
  14. the paper's PS-cluster pipeline (``core/predictor.py``, the cluster
@@ -335,6 +342,9 @@ GEMMA_ARGV = ["--arch", "gemma-7b", "--layers", "4", *COMMON_ARGV]
 # recurrentgemma-2b at full width and depth: 26 layers, 46.3 GB of state.
 RG_ARGV = ["--arch", "recurrentgemma-2b", *COMMON_ARGV]
 SLICE = (2, 2048, 16, 16, 256)          # flash b, s, h, kv, d on its path
+OFFSET_SHARDS = 16      # 1a: SLICE's sequence as model's 16 shards of it
+OFFSET_ROWS = (0, 7, 15)                # ... the shards held, causal
+OFFSET_WINDOW = 256                     # ... and shard 7 with a window
 MOE_SLICE = (2, 2048, 16, 16, 128)      # ... on the deepseek-moe-16b path
 ARCTIC_SLICE = (1, 2048, 56, 8, 128)    # ... arctic-480b's, 7 q a kv head
 PREFILL = (1, 32768, 16, 16, 256)       # ... on the prefill path
@@ -486,8 +496,24 @@ DRYRUN_CELLS = [        # 13b: (arch, shape, multi_pod)
     ("gemma-7b", "decode_32k", False), ("gemma-7b", "train_4k", True),
     ("arctic-480b", "train_4k", False),
     ("llama-3.2-vision-90b", "train_4k", False),
+    # 24 heads over model's 16: q over the sequence, as arctic-480b's 56
+    ("phi4-mini-3.8b", "train_4k", False),
     # the sLSTM / mLSTM time loop: traced at S = 16 and 32, extrapolated
     (XLSTM, "train_4k", False)]
+# 13b: the cells' bytes (GiB) and FLOPs a device before the sharded
+# attention took the reference's layout (the card's counts, unchanged over
+# several runs); arctic-480b's and llama-3.2-vision-90b's must fall below
+# them and gemma-7b's stay equal at these digits (its heads divide model).
+# The reference's XLA count for arctic-480b: 57.86 GiB.
+DRYRUN_BEFORE = {("gemma-7b", "train_4k", False): (35.94, 2.9448e14),
+                 ("gemma-7b", "prefill_32k", False): (9.37, 1.3151e14),
+                 ("gemma-7b", "decode_32k", False): (13.78, 1.6054e10),
+                 ("gemma-7b", "train_4k", True): (16.32, 1.4724e14),
+                 ("arctic-480b", "train_4k", False): (1219.98, 4.2079e15),
+                 ("llama-3.2-vision-90b", "train_4k", False):
+                 (300.39, 7.2849e15)}
+DRYRUN_FALL = ("arctic-480b", "llama-3.2-vision-90b")
+REFERENCE_GIB = {"arctic-480b": 57.86}
 COMM_KINDS = (("all_gather", "all-gather"), ("reduce_scatter",
               "reduce-scatter"), ("all_reduce", "all-reduce"),
               ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"))
@@ -603,6 +629,38 @@ def time_flash(shape, inputs, kernel, plain) -> dict:
             "bound_by": by, "library_ms": lib}
 
 
+def offset_rows(inputs, kernel, plain) -> None:
+    """Phase 1a's query-offset rows: at ``SLICE``'s shape, one sequence
+    shard of S / ``OFFSET_SHARDS`` queries at a time (as a rank of the
+    sequence-parallel layout computes it) with whole k and v at its own
+    ``q_offset``, against the plain version and against the same rows of
+    the kernel's full-sequence output; causal, in fp32 and bf16, at shards
+    ``OFFSET_ROWS`` and one windowed."""
+    import torch
+    b, s, h, kv, d = SLICE
+    n = s // OFFSET_SHARDS
+    for dt in DTYPES:
+        q, k, v = inputs(*SLICE, dt)
+        for window, shards in ((0, OFFSET_ROWS), (OFFSET_WINDOW, (7,))):
+            full = kernel(q, k, v, causal=True, window=window)
+            for r in shards:
+                rows = slice(r * n, (r + 1) * n)
+                qs = q[:, rows].contiguous()
+                out = kernel(qs, k, v, causal=True, window=window,
+                             q_offset=r * n)
+                torch.cuda.synchronize()
+                label = (f"flash kernel q_offset {r * n} ({n} of {s} rows) "
+                         f"{SLICE} {dt} window={window}")
+                check_close(f"{label} vs plain", out, plain(
+                    qs, k, v, causal=True, window=window, q_offset=r * n),
+                    TOL[dt])
+                check_close(f"{label} vs the full sequence's rows", out,
+                            full[:, rows], TOL[dt])
+                del qs, out
+            del full
+        del q, k, v
+
+
 def check_close(label: str, out, want, tol: float) -> float:
     diff = (out.float() - want.float()).abs()
     err = diff.max().item()
@@ -697,6 +755,7 @@ def main() -> int:
         if shape in (SLICE, MOE_SLICE, WHISPER_SLICE) and dt == "bfloat16":
             slice_err[shape] = err
         del q, k, v, out, want
+    offset_rows(inputs, flash_attention_fwd, flash_attention_ref)
 
     prefill, llama_prefill = (
         prefill_rows(inputs, flash_attention_fwd, flash_attention_ref, shape)
@@ -2652,6 +2711,12 @@ def dryrun_phase(gemma: dict, real: dict) -> None:
     require(abs(ratio - 1) <= DRYRUN_PEAK_TOL,
             "13a: the trace's peak is off the measured one")
     mark("13b")
+    production_cells_phase()
+
+
+def production_cells_phase() -> None:
+    """Phase 13b: ``DRYRUN_CELLS`` through ``dryrun_cell`` on fake ``cuda``
+    tensors, each beside its counts in ``DRYRUN_BEFORE``."""
     from repro_torch.launch.dryrun import dryrun_cell
     for arch, shape, multi_pod in DRYRUN_CELLS:
         rec = dryrun_cell(arch, shape, multi_pod=multi_pod, verbose=False)
@@ -2681,6 +2746,25 @@ def dryrun_phase(gemma: dict, real: dict) -> None:
         if rec["kind"] == "train":
             require(r["useful_flops_ratio"] <= 1,
                     f"{head}: more useful FLOPs than counted ones")
+        print(f"{head}: the peak's GiB by the op that allocated them: "
+              + ", ".join(f"{op} {b / 2**30:.2f}" for op, b in
+                          rec["memory"]["peak_by_op"].items()), flush=True)
+        before = DRYRUN_BEFORE.get((arch, shape, multi_pod))
+        if before is None:
+            continue
+        gib = rec["memory"]["total_bytes_per_device"] / 2**30
+        print(f"{head}: {gib:.2f} GiB and {r['flops']:.4e} FLOPs a device "
+              f"against {before[0]:.2f} GiB and {before[1]:.4e} before the "
+              f"reference's attention layout"
+              + (f"; the reference's XLA count {REFERENCE_GIB[arch]} GiB"
+                 if arch in REFERENCE_GIB else ""), flush=True)
+        if arch in DRYRUN_FALL:
+            require(gib < before[0] and r["flops"] < before[1],
+                    f"{head}: the counts did not fall")
+        else:
+            require(f"{gib:.2f} {r['flops']:.4e}"
+                    == f"{before[0]:.2f} {before[1]:.4e}",
+                    f"{head}: the counts moved")
 
 
 def paper_phase(card: str) -> None:

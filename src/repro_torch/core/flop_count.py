@@ -28,7 +28,7 @@ from __future__ import annotations
 import sys
 import weakref
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -127,14 +127,17 @@ class DeviceCounts:
     step's arguments (params, optimizer state, batch) and everything its
     ops allocate while it runs, the counterpart of ``memory_analysis``'s
     argument + output + temp - alias (the optimizer updates in place where
-    the reference donates). ``local_ops`` counts the ops counted; ``ops``
-    holds per-op totals by op name."""
+    the reference donates). ``peak_by_op`` splits the peak by the op that
+    allocated each live storage (``"arguments"`` for the step's own).
+    ``local_ops`` counts the ops counted; ``ops`` holds per-op totals by op
+    name."""
 
     flops: int = 0
     hbm_bytes: int = 0
     local_ops: int = 0
     argument_bytes: int = 0
     peak_bytes: int = 0
+    peak_by_op: Dict[str, int] = field(default_factory=dict)
     collectives: CollectiveStats = field(default_factory=CollectiveStats)
     ops: Dict[str, Dict] = field(default_factory=dict)
 
@@ -212,24 +215,31 @@ class DeviceCounter(TorchDispatchMode):
         self.counts = DeviceCounts()
         self._flops = FlopCounterMode(display=False)
         self._fake_mode = active_fake_mode()
-        self._live: Dict[int, int] = {}     # storage id -> bytes
+        # storage id -> (bytes, the op that allocated it)
+        self._live: Dict[int, Tuple[int, str]] = {}
         self._refs: Dict[int, weakref.ref] = {}
         self._live_bytes = 0
+        self._by_op: Dict[str, int] = {}
         for t in arguments:
-            self._track(_local(t))
+            self._track(_local(t), "arguments")
         self.counts.argument_bytes = self.counts.peak_bytes = self._live_bytes
+        self.counts.peak_by_op = dict(self._by_op)
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, owner: str) -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._live:
             return
-        self._live[key] = st.nbytes()
-        self._live_bytes += self._live[key]
+        self._live[key] = (st.nbytes(), owner)
+        self._live_bytes += st.nbytes()
+        self._by_op[owner] = self._by_op.get(owner, 0) + st.nbytes()
         self._refs[key] = weakref.ref(st, lambda _, k=key: self._free(k))
 
     def _free(self, key: int) -> None:
-        self._live_bytes -= self._live.pop(key, 0)
+        nbytes, owner = self._live.pop(key, (0, None))
+        self._live_bytes -= nbytes
+        if owner is not None:
+            self._by_op[owner] -= nbytes
         self._refs.pop(key, None)
 
     def _counted(self) -> bool:
@@ -271,11 +281,13 @@ class DeviceCounter(TorchDispatchMode):
             moved = sum(t.numel() * t.element_size()
                         for t in (*seen.values(), *outs))
             for t in outs:
-                self._track(t)
+                self._track(t, str(func))
         c.flops += flops
         c.hbm_bytes += moved
         c.local_ops += 1
-        c.peak_bytes = max(c.peak_bytes, self._live_bytes)
+        if self._live_bytes > c.peak_bytes:
+            c.peak_bytes = self._live_bytes
+            c.peak_by_op = {k: v for k, v in self._by_op.items() if v}
         kind = collective_kind(func) or ("dot" if flops else "op")
         row = c.ops.setdefault(str(func), {"kind": kind, "flops": 0,
                                            "bytes": 0, "coll_bytes": 0})

@@ -3,9 +3,12 @@
 // Replaces src/repro/kernels/flash_attention.py::_attn_kernel (the Pallas
 // TPU kernel behind flash_attention_fwd). It computes the same function:
 // online-softmax attention, causal or not, sliding window (causal only, as
-// in the reference), GQA/MQA (kv head = h / (H / Kv)), queries right-aligned
-// against keys by T - S, fp32 math inside, output in the input type, l
-// clamped at 1e-30. Two kernels serve the two input types:
+// in the reference), GQA/MQA (kv head = h / (H / Kv)), query i at key
+// position off + i (off = T - S right-aligns the queries, as the reference
+// does; a shard of the sequence passes its own, 0 <= off <= T - S), fp32
+// math inside, output in the input type, l clamped at 1e-30. The causal kv
+// range, the window edge and the mask all derive from off. Two kernels
+// serve the two input types:
 //
 //   * bf16 -> attn_fwd_tc, on the tensor cores (wgmma + TMA), below;
 //   * fp32 -> attn_fwd, fp32 FMAs from shared memory. Tensor cores cannot
@@ -114,7 +117,7 @@ template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(NT)
 attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
          const float* __restrict__ v, float* __restrict__ o, int S, int Tk,
-         int H, int KV, int window, float scale) {
+         int H, int KV, int window, int off, float scale) {
   constexpr int QS = D + PAD;    // row stride of Qs and Ks
   constexpr int PS = BK + PAD;   // row stride of Ps
   constexpr int NJ = D / 64;     // float4 output columns per thread
@@ -133,7 +136,6 @@ attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const long qstride = (long)H * D;     // elements between positions of q, o
   const long kstride = (long)KV * D;    // ... of k, v
   const int q_valid = min(BQ, S - q0);
-  const int off = Tk - S;               // right alignment of the queries
 
   load_tile<D>(Qs, QS, q + ((long)b * S + q0) * qstride + (long)h * D,
                qstride, q_valid, BQ);
@@ -266,7 +268,7 @@ attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Tk, int H, int KV, int window, cudaStream_t stream) {
+           int Tk, int H, int KV, int window, int off, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (size_t)(BQ * (D + PAD) + BK * (D + PAD) + BK * D + BQ * (BK + PAD));
   auto kernel = attn_fwd<D, CAUSAL>;
@@ -277,18 +279,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, Tk, H, KV,
-      window, 1.0f / sqrtf((float)D));
+      window, off, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int S, int Tk, int H, int KV, int D, int causal, int window,
-             cudaStream_t stream) {
+             int off, cudaStream_t stream) {
 #define FA_CASE(DD)                                                          \
   if (D == DD)                                                               \
     return causal ? launch<DD, true>(q, k, v, o, B, S, Tk, H, KV, window,    \
-                                     stream)                                 \
-                  : launch<DD, false>(q, k, v, o, B, S, Tk, H, KV, 0, stream);
+                                     off, stream)                            \
+                  : launch<DD, false>(q, k, v, o, B, S, Tk, H, KV, 0, off,   \
+                                      stream);
   FA_CASE(64)
   FA_CASE(128)
   FA_CASE(256)
@@ -538,7 +541,7 @@ attn_fwd_tc(const __grid_constant__ CUtensorMap qmap,
             const __grid_constant__ CUtensorMap kmap,
             const __grid_constant__ CUtensorMap vmap,
             __nv_bfloat16* __restrict__ o, int S, int Tk, int H, int KV,
-            int window, float scale_log2) {
+            int window, int off, float scale_log2) {
   constexpr int NP = D / PANEL;             // panels across a row of D
   constexpr int Q_BYTES = BQ * D * 2;
   constexpr int KV_BYTES = BK * D * 2;      // K or V, one stage
@@ -559,7 +562,6 @@ attn_fwd_tc(const __grid_constant__ CUtensorMap qmap,
   const int h = blockIdx.x % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest tile first
   const int kvh = h / (H / KV);
-  const int off = Tk - S;               // right alignment of the queries
   const int q_valid = min(BQ, S - q0);
   // Keys this block can see: [kv_lo, kv_hi), in tiles of BK from k_first.
   int kv_lo = 0;
@@ -791,7 +793,7 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int L, int NH, int D) {
 
 template <int D, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Tk, int H, int KV, int window, cudaStream_t stream) {
+           int Tk, int H, int KV, int window, int off, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   int err = make_map(&qmap, q, B, S, H, D);
   if (err == 0) err = make_map(&kmap, k, B, Tk, KV, D);
@@ -806,19 +808,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
   kernel<<<grid, NT, smem, stream>>>(qmap, kmap, vmap,
                                      static_cast<__nv_bfloat16*>(o), S, Tk, H,
-                                     KV, window,
+                                     KV, window, off,
                                      1.4426950408889634f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int S, int Tk, int H, int KV, int D, int causal, int window,
-             cudaStream_t stream) {
+             int off, cudaStream_t stream) {
 #define FA_CASE(DD)                                                          \
   if (D == DD)                                                               \
     return causal ? launch<DD, true>(q, k, v, o, B, S, Tk, H, KV, window,    \
-                                     stream)                                 \
-                  : launch<DD, false>(q, k, v, o, B, S, Tk, H, KV, 0, stream);
+                                     off, stream)                            \
+                  : launch<DD, false>(q, k, v, o, B, S, Tk, H, KV, 0, off,   \
+                                      stream);
   FA_CASE(64)
   FA_CASE(128)
   FA_CASE(256)
@@ -832,23 +835,28 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 
 namespace {
 
-bool bad_shape(int B, int S, int T, int H, int KV) {
-  return B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0;
+bool bad_shape(int B, int S, int T, int H, int KV, int causal, int off) {
+  return B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0 ||
+         (causal && (off < 0 || off > T - S));
 }
 
 }  // namespace
 
 // q: (B, S, H, D); k, v: (B, T, KV, D); o: (B, S, H, D); all contiguous and
-// of the entry's type. Each entry launches on `stream` and returns the CUDA
-// error code of the launch (0 = success).
+// of the entry's type. Query i sits at key position off + i: off = T - S
+// right-aligns them; causal calls need 0 <= off <= T - S. Each entry
+// launches on `stream` and returns the CUDA error code of the launch
+// (0 = success).
 
 // float32 -> attn_fwd, fp32 FMAs on the CUDA cores.
 extern "C" int flash_attention_fwd_fp32(const void* q, const void* k,
                                         const void* v, void* o, int B, int S,
                                         int T, int H, int KV, int D,
-                                        int causal, int window, void* stream) {
-  if (bad_shape(B, S, T, H, KV)) return (int)cudaErrorInvalidValue;
-  return dispatch(q, k, v, o, B, S, T, H, KV, D, causal, window,
+                                        int causal, int window, int off,
+                                        void* stream) {
+  if (bad_shape(B, S, T, H, KV, causal, off))
+    return (int)cudaErrorInvalidValue;
+  return dispatch(q, k, v, o, B, S, T, H, KV, D, causal, window, off,
                   static_cast<cudaStream_t>(stream));
 }
 
@@ -856,9 +864,11 @@ extern "C" int flash_attention_fwd_fp32(const void* q, const void* k,
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* o, int B, int S,
                                         int T, int H, int KV, int D,
-                                        int causal, int window, void* stream) {
-  if (bad_shape(B, S, T, H, KV)) return (int)cudaErrorInvalidValue;
-  return tc::dispatch(q, k, v, o, B, S, T, H, KV, D, causal, window,
+                                        int causal, int window, int off,
+                                        void* stream) {
+  if (bad_shape(B, S, T, H, KV, causal, off))
+    return (int)cudaErrorInvalidValue;
+  return tc::dispatch(q, k, v, o, B, S, T, H, KV, D, causal, window, off,
                       static_cast<cudaStream_t>(stream));
 }
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -27,12 +28,17 @@ ENTRIES = {torch.float32: "flash_attention_fwd_fp32",
            torch.bfloat16: "flash_attention_fwd_bf16"}
 
 
+def fits_blocks(n: int, block: int = 128) -> bool:
+    """Whether a sequence length ``n`` divides its block, ``min(block, n)``."""
+    return n % min(block, n) == 0
+
+
 def check_blocks(s: int, t: int, block_q: int = 128,
                  block_k: int = 128) -> None:
     """The Pallas kernel's shape rule: S and T divide ``min(block, len)``."""
-    bq, bk = min(block_q, s), min(block_k, t)
-    if s % bq or t % bk:
-        raise ValueError(f"seq lens ({s},{t}) must divide blocks ({bq},{bk})")
+    if not (fits_blocks(s, block_q) and fits_blocks(t, block_k)):
+        raise ValueError(f"seq lens ({s},{t}) must divide blocks "
+                         f"({min(block_q, s)},{min(block_k, t)})")
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,15 +47,21 @@ def _load() -> ctypes.CDLL:
     for entry in ENTRIES.values():
         fn = getattr(lib, entry)
         fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _offset(s: int, t: int, q_offset: Optional[int]) -> int:
+    """The key-space position of query 0: ``q_offset``, or T - S (right
+    alignment) for None."""
+    return t - s if q_offset is None else int(q_offset)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool, window: int) -> None:
+           causal: bool, window: int, q_offset: Optional[int] = None) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
@@ -73,19 +85,27 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # Rows before the first key see no key at all; the reference then
         # averages every value, which a range-bounded kv loop cannot do.
         raise ValueError(f"causal attention needs T >= S, got T={t}, S={s}")
+    off = _offset(s, t, q_offset)
+    if causal and not 0 <= off <= t - s:
+        # a row past the last key, or before the first, leaves the range
+        raise ValueError(f"causal attention needs 0 <= q_offset <= T - S = "
+                         f"{t - s}, got {off}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     check_blocks(s, t)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        q_offset: Optional[int] = None) -> torch.Tensor:
     """q: (B, S, H, D); k, v: (B, T, Kv, D) with H % Kv == 0; CUDA only.
 
+    Query i sits at key position ``q_offset + i`` (T - S for None; a shard
+    of the sequence passes its own, 0 <= q_offset <= T - S when causal).
     Launches the kernel on the current stream and returns (B, S, H, D) in
     q's dtype. Counts each launch in ``flash_attention_fwd.launches``.
     """
-    _check(q, k, v, causal, window)
+    _check(q, k, v, causal, window, q_offset)
     lib = _load()
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -95,7 +115,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = getattr(lib, ENTRIES[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             b, s, t, h, kv, d, int(causal), int(window) if causal else 0,
-            stream)
+            _offset(s, t, q_offset), stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention_fwd launch failed: {msg} ({err})")

@@ -13,22 +13,26 @@ forms da, so the backward makes no flipped or shifted copies.
 card is then its count on the CPU.
 
 DTensors reach the kernels without reaching ``data_ptr``: each kernel runs
-on the local shards of a layout it computes shard by shard. Every input is
-replicated, sharded on batch (dim 0), or sharded on heads or width (dim 2);
-never on the sequence (dim 1), whose causal attention or recurrence a shard
-cannot compute alone. The scan ops carry a ``register_sharding`` rule.
-Attention's heads shard only over mesh dims whose sizes' product divides
-both H and Kv, so that each shard's GQA map ``h // (H / Kv)`` is the global
-one; that condition spans mesh dims, which a ``register_sharding`` rule (one
-mesh dim's strategies, expanded over the rest) cannot state, so the flash
-forward runs under ``local_map`` with the placements ``_flash_placements``
-(the sharding layer's ``attention_placements``) picks. Its backward, the
-plain reference's VJP through autograd, cannot run inside a custom op and
-runs under ``local_map`` with the same placements; its gradients come back
-contiguous, since DTensor plans the views that follow from global strides,
-which a permuted local gradient does not have. ``local_map_calls`` (the
-sharding layer's) counts each region's runs.
+on the local shards of a layout it computes shard by shard. The scan's
+inputs are replicated, sharded on batch (dim 0) or on width (dim 2), never
+on the sequence, whose recurrence a shard cannot compute alone; the scan
+ops carry a ``register_sharding`` rule. Attention takes the reference's
+layout (the sharding layer's ``attention_placements``): q over batch, over
+heads where they divide, else over the sequence; k and v whole where q's
+shard is one they do not share. A rank then needs its own query offset
+and its slice of the kv heads, which no ``register_sharding`` rule can
+give, so the flash forward runs under ``local_map`` with the rank's
+``AttentionLayout``. Its backward, the plain reference's VJP through
+autograd, cannot run inside a custom op and runs under ``local_map`` too:
+it takes the whole local k and v and slices inside, so that autograd
+scatters zeros outside the slice, and k's and v's gradients come back as
+partial sums wherever q is sharded and they are whole. The gradients come
+back contiguous, since DTensor plans the views that follow from global
+strides, which a permuted local gradient does not have.
+``local_map_calls`` (the sharding layer's) counts each region's runs.
 """
+from typing import Optional
+
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map, register_sharding
@@ -47,23 +51,26 @@ from .rglru_scan import rglru_scan_bwd, rglru_scan_fwd
 
 @torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
 def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool, window: int) -> torch.Tensor:
-    """The CUDA kernel as a dispatcher op."""
-    return flash_attention_fwd(q, k, v, causal=causal, window=window)
+                  causal: bool, window: int,
+                  q_offset: Optional[int] = None) -> torch.Tensor:
+    """The CUDA kernel as a dispatcher op; ``q_offset`` None is T - S."""
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
 
 
 @_flash_kernel.register_kernel("cpu")
-def _(q, k, v, causal, window):
+def _(q, k, v, causal, window, q_offset=None):
     check_blocks(q.shape[1], k.shape[1])
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
 
 
 @_flash_kernel.register_fake
-def _(q, k, v, causal, window):
+def _(q, k, v, causal, window, q_offset=None):
     """On fake tensors the contract of the device's kernel: the CUDA
     wrapper's on ``cuda``, the CPU path's block rule on ``cpu``."""
     if q.device.type == "cuda":
-        _cuda_contract(q, k, v, causal, window)
+        _cuda_contract(q, k, v, causal, window, q_offset)
     else:
         check_blocks(q.shape[1], k.shape[1])
     return torch.empty_like(q)
@@ -75,12 +82,18 @@ def _check_device(name: str, x: torch.Tensor) -> None:
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
-def _flash_flops(q_shape, k_shape, v_shape, causal, window, *,
-                 out_shape=None) -> int:
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, q_offset=None,
+                 *, out_shape=None) -> int:
     """What ``ref.flash_attention_ref`` counts: its two products (logits
     and output), 2·B·H·S·T·D FLOPs each, with no causal skipping."""
     b, s, h, d = q_shape
     return 4 * b * h * s * k_shape[1] * d
+
+
+def _flash_local(q, k, v, causal: bool, window: int, layout):
+    """A rank's forward: the kernel on its q and its slice of k and v."""
+    k, v = (layout.kv_slice(x).contiguous() for x in (k, v))
+    return _flash_kernel(q, k, v, causal, window, layout.q_offset)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -88,46 +101,59 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, window: int):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        ctx.placements = None
+        ctx.layout = None
         _check_device("flash_attention", q)
         if not isinstance(q, DTensor):
             return _flash_kernel(q, k, v, causal, window)
-        p = ctx.placements = _flash_placements(q, k)
+        lay = ctx.layout = _flash_placements(q, k)
         local_map_calls["flash_attention forward"] += 1
         # one output: its placements as a list (a tuple means one a value)
-        return local_map(_flash_kernel, out_placements=list(p),
-                         in_placements=(p, p, p, None, None),
+        return local_map(_flash_local, out_placements=list(lay.q),
+                         in_placements=(lay.q, lay.kv, lay.kv, None, None,
+                                        None),
                          device_mesh=q.device_mesh,
-                         redistribute_inputs=True)(q, k, v, causal, window)
+                         redistribute_inputs=True)(q, k, v, causal, window,
+                                                   lay)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        vjp = _flash_vjp
-        if ctx.placements is not None:
-            p = ctx.placements
+        lay = ctx.layout
+        if lay is None:
+            dq, dk, dv = _flash_vjp(q, k, v, g, ctx.causal, ctx.window)
+        else:
             local_map_calls["flash_attention backward"] += 1
-            vjp = local_map(_flash_vjp_dense, out_placements=(p, p, p),
-                            in_placements=(p, p, p, p, None, None),
+            vjp = local_map(_flash_vjp_dense,
+                            out_placements=(lay.q, lay.kv_grad, lay.kv_grad),
+                            in_placements=(lay.q, lay.kv, lay.kv, lay.q,
+                                           None, None, None),
                             device_mesh=q.device_mesh,
                             redistribute_inputs=True)
-        dq, dk, dv = vjp(q, k, v, g, ctx.causal, ctx.window)
+            dq, dk, dv = vjp(q, k, v, g, ctx.causal, ctx.window, lay)
         return dq, dk, dv, None, None
 
 
-def _flash_vjp(q, k, v, g, causal: bool, window: int):
+def _flash_vjp(q, k, v, g, causal: bool, window: int, layout=None):
     """(dq, dk, dv): the plain reference differentiated by autograd,
-    recomputed from (q, k, v)."""
+    recomputed from (q, k, v). With a rank's ``layout``, at its query
+    offset and with k and v cut to its kv heads inside, so that their
+    gradients are zero outside the slice."""
     with torch.enable_grad():
         qkv = [x.detach().requires_grad_() for x in (q, k, v)]
-        out = ref.flash_attention_ref(*qkv, causal=causal, window=window)
+        q_, k_, v_ = qkv
+        off = None
+        if layout is not None:
+            k_, v_ = layout.kv_slice(k_), layout.kv_slice(v_)
+            off = layout.q_offset
+        out = ref.flash_attention_ref(q_, k_, v_, causal=causal,
+                                      window=window, q_offset=off)
     return torch.autograd.grad(out, qkv, g)
 
 
-def _flash_vjp_dense(q, k, v, g, causal: bool, window: int):
-    """``_flash_vjp`` with each gradient contiguous."""
+def _flash_vjp_dense(q, k, v, g, causal: bool, window: int, layout):
+    """``_flash_vjp`` on a rank's shards, each gradient contiguous."""
     return tuple(x.contiguous()
-                 for x in _flash_vjp(q, k, v, g, causal, window))
+                 for x in _flash_vjp(q, k, v, g, causal, window, layout))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -8,18 +8,20 @@ against them on the card.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True,
-                        window: int = 0) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        q_offset: Optional[int] = None) -> torch.Tensor:
     """Naive attention. q: (B,S,H,D); k,v: (B,T,Kv,D); GQA by head grouping.
 
     Returns (B,S,H,D) in q.dtype; softmax in fp32. Masked logits are -1e30
-    and queries are right-aligned against keys by T - S. ``window`` applies
-    only with ``causal``, as in ``repro.kernels.ref``.
+    and query i sits at key position ``q_offset + i``: right-aligned by
+    T - S when ``q_offset`` is None, as in ``repro.kernels.ref``; a shard of
+    the sequence passes its own. ``window`` applies only with ``causal``.
     """
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -29,7 +31,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.float()
     logits = torch.einsum("bskgd,btkd->bkgst", qg, kf) / math.sqrt(d)
     if causal:
-        qi = torch.arange(s, device=q.device)[:, None] + (t - s)
+        off = t - s if q_offset is None else q_offset
+        qi = torch.arange(s, device=q.device)[:, None] + off
         ki = torch.arange(t, device=q.device)[None, :]
         m = ki <= qi
         if window > 0:

@@ -206,9 +206,9 @@ def extrapolate(a: "fc.DeviceCounts", b: "fc.DeviceCounts",
                 k: int) -> "fc.DeviceCounts":
     """The counts at ``S_a + k (S_b - S_a)`` from traces at ``S_a`` (``a``)
     and ``S_b`` (``b``): every additive count (FLOPs, op bytes, argument
-    and peak bytes, local ops, each collective kind's wire bytes and count)
-    on the line through the two. The per-op totals and the collective op
-    list are ``b``'s."""
+    and peak bytes and the peak's split by op, local ops, each collective
+    kind's wire bytes and count) on the line through the two. The per-op
+    totals and the collective op list are ``b``'s."""
     def fit(x: int, y: int) -> int:
         return x + (y - x) * k
 
@@ -226,7 +226,8 @@ def extrapolate(a: "fc.DeviceCounts", b: "fc.DeviceCounts",
         hbm_bytes=fit(a.hbm_bytes, b.hbm_bytes),
         local_ops=fit(a.local_ops, b.local_ops),
         argument_bytes=fit(a.argument_bytes, b.argument_bytes),
-        peak_bytes=fit(a.peak_bytes, b.peak_bytes), collectives=coll)
+        peak_bytes=fit(a.peak_bytes, b.peak_bytes),
+        peak_by_op=fit_kinds(a.peak_by_op, b.peak_by_op), collectives=coll)
 
 
 def trace_cell(cfg: ModelConfig, sp: ShapeSpec, mesh, optimizer: str =
@@ -264,6 +265,9 @@ def record_fields(counts: "fc.DeviceCounts", model_flops: float,
             "argument_size_in_bytes": counts.argument_bytes,
             "temp_size_in_bytes": counts.peak_bytes - counts.argument_bytes,
             "total_bytes_per_device": counts.peak_bytes,
+            # the peak's bytes by the op that allocated them, largest first
+            "peak_by_op": dict(sorted(counts.peak_by_op.items(),
+                                      key=lambda kv: -kv[1])[:8]),
         },
         "cost": {"flops": float(counts.flops),
                  "bytes accessed": float(counts.hbm_bytes),

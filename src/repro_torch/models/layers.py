@@ -23,12 +23,13 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.device import require_device
 from repro_torch.parallel.sharding import (attention_placements, constant_like,
-                                           einsum, local_map_calls, role_size,
+                                           einsum, gather_like,
+                                           local_map_calls, role_size,
                                            shard, shard_over, write_slot)
 from .config import ModelConfig
 
@@ -166,9 +167,12 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 def _qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor):
     """The projections. On a mesh the k/v weights are sliced over heads
-    where ``_shard_kv`` shards k and v over them: XLA carries that
-    constraint back into the products, DTensor does not."""
+    where ``_shard_kv`` shards k and v over them, and q's product runs on
+    x's sequence shards where ``_shard_q`` shards q over the sequence: XLA
+    carries those constraints back into the products, DTensor does not."""
     dt = x.dtype
+    if p["wq"].shape[1] % max(role_size("tp"), 1):
+        x = shard_over(x, x.ndim - 2, "sp")
     q = einsum("...sd,dhk->...shk", x, p["wq"].to(dt))
     k = einsum("...sd,dhk->...shk", kv_src,
                shard_over(p["wk"].to(dt), 1, "tp"))
@@ -203,7 +207,8 @@ def mha_logits_to_out(q, k, v, mask, cfg: Optional[ModelConfig],
     if isinstance(q, DTensor):
         mask = None if mask is None else constant_like(mask, q)
         return _attention_on_shards(
-            lambda *a: mha_logits_to_out(*a, cfg, softcap), q, k, v, mask)
+            lambda q, k, v, m, _: mha_logits_to_out(q, k, v, m, cfg, softcap),
+            q, k, v, mask)
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -227,33 +232,47 @@ def mha_logits_to_out(q, k, v, mask, cfg: Optional[ModelConfig],
     return out.reshape(b, s, h, d)
 
 
-def _attention_on_shards(fn, q, k, v, *extra):
-    """``fn(q, k, v, *extra)`` on DTensors, each rank on its shards of batch
-    and heads where they divide (``attention_placements``), with the
-    sequence and everything else whole: DTensor cannot split the heads
-    into (Kv, G) groups or flatten them with the batch for its ``bmm``
-    where they are sharded. ``extra``: replicated tensors (a mask) or
-    None."""
-    p = attention_placements(q, k)
-    whole = (Replicate(),) * q.device_mesh.ndim
+def _attention_on_shards(fn, q, k, v, mask=None):
+    """``fn(q, k, v, mask, q_offset)`` on DTensors, each rank on its shards
+    in the reference's layout (``attention_placements``): q over batch,
+    heads or the sequence; k and v over batch and the heads they share with
+    q, else whole and cut to the rank's kv heads; a mask (1, 1, S, T) over
+    its query rows wherever q is over the sequence; ``q_offset`` the rank's
+    first query's key position. DTensor cannot split the heads into (Kv, G)
+    groups or flatten them with the batch for its ``bmm`` where they are
+    sharded. k's and v's gradients are partial sums wherever q is sharded
+    and they are whole."""
+    lay = attention_placements(q, k)
+    mask_pl = None if mask is None else tuple(
+        Shard(2) if p == Shard(1) and mask.shape[2] == q.shape[1]
+        else Replicate() for p in lay.q)
+
+    def local(q, k, v, mask):
+        return fn(q, lay.kv_slice(k), lay.kv_slice(v), mask,
+                  lay.q_offset).contiguous()
+
     local_map_calls["attention"] += 1
     return local_map(
-        lambda *a: fn(*a).contiguous(), out_placements=list(p),
-        in_placements=(p, p, p, *(None if x is None else whole
-                                  for x in extra)),
-        device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v, *extra)
+        local, out_placements=list(lay.q),
+        in_placements=(lay.q, lay.kv, lay.kv, mask_pl),
+        in_grad_placements=(lay.q, lay.kv_grad, lay.kv_grad, mask_pl),
+        device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v, mask)
 
 
 def chunked_attention(q, k, v, cfg: ModelConfig, causal: bool = True,
-                      window: int = 0) -> torch.Tensor:
+                      window: int = 0,
+                      q_offset: Optional[int] = None) -> torch.Tensor:
     """Online-softmax attention over kv chunks (flash semantics, plain ops).
 
     Never materializes the full (S, T) score tensor: peak score memory is
-    (S, chunk). On DTensors it runs on each rank's shards.
+    (S, chunk). Query i sits at key position ``q_offset + i`` (T - S for
+    None). On DTensors it runs on each rank's shards.
     """
     if isinstance(q, DTensor):
         return _attention_on_shards(
-            lambda *a: chunked_attention(*a, cfg, causal, window), q, k, v)
+            lambda q, k, v, _, off: chunked_attention(q, k, v, cfg, causal,
+                                                      window, off),
+            q, k, v)
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -265,7 +284,8 @@ def chunked_attention(q, k, v, cfg: ModelConfig, causal: bool = True,
     scale = 1.0 / math.sqrt(d)
     kc = k.reshape(b, n_chunks, c, kvh, d).float()
     vc = v.reshape(b, n_chunks, c, kvh, d).float()
-    q_pos = torch.arange(s, device=q.device) + (t - s)
+    q_pos = torch.arange(s, device=q.device) + (
+        t - s if q_offset is None else q_offset)
 
     m_run = torch.full((b, kvh, g, s), -1e30, device=q.device)
     l_run = torch.zeros((b, kvh, g, s), device=q.device)
@@ -323,7 +343,8 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 if causal else None)
         out = mha_logits_to_out(q, k, v, mask, cfg)
     out = shard(out, "act_heads")
-    return einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
+    return gather_like(
+        einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype)), x, x.ndim - 2)
 
 
 def gate_output(p: Params, y: torch.Tensor) -> torch.Tensor:
@@ -341,7 +362,8 @@ def cross_attention_block(p: Params, x: torch.Tensor, enc: torch.Tensor,
     q, k, v = _qkv(p, x, enc)
     q, k, v = _shard_q(q), _shard_kv(k), _shard_kv(v)
     out = mha_logits_to_out(q, k, v, None, cfg)
-    y = einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
+    y = gather_like(einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype)),
+                    x, x.ndim - 2)
     return gate_output(p, y) if gated else y
 
 

@@ -157,8 +157,11 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip=1.0) -> Optimizer:
                 v["row"].mul_(beta).add_(g2.mean(-1), alpha=1 - beta)
                 v["col"].mul_(beta).add_(g2.mean(-2), alpha=1 - beta)
                 rmean = v["row"].mean(-1, keepdim=True)
-                vhat = (v["row"] / rmean.clamp_min(eps))[..., None] \
-                    * v["col"][..., None, :]
+                # built in g's layout (1 · r · c, exact): on DTensors the
+                # replicated factors' product would be whole on every rank
+                vhat = torch.ones_like(gf).mul_(
+                    (v["row"] / rmean.clamp_min(eps))[..., None]).mul_(
+                    v["col"][..., None, :])
             else:
                 vhat = v["v"].mul_(beta).add_(g2, alpha=1 - beta)
             del g2

@@ -255,6 +255,22 @@ def constant_like(t: torch.Tensor, ref):
                               run_check=False)
 
 
+def gather_like(y, x, dim: int):
+    """``y`` with its shards of tensor dim ``dim`` gathered on each mesh dim
+    where the DTensor ``x`` is not sharded so (an all-gather); anything
+    else passes through. Attention computed on q's sequence shards hands
+    its output back so sharded, and the residual stream it joins keeps its
+    own layout: torch 2.11's DTensor refuses the views that flatten a
+    sharded sequence (the MoE's token groups)."""
+    if not isinstance(y, DTensor) or not isinstance(x, DTensor):
+        return y
+    want = [Replicate() if p == Shard(dim) and px != p else p
+            for p, px in zip(y.placements, x.placements)]
+    if want == list(y.placements):
+        return y
+    return y.redistribute(y.device_mesh, want)
+
+
 def reduce_partials(x):
     """``x`` with every pending (partial) sum reduced: a DTensor's
     ``Partial`` placements become ``Replicate()``, its shards stay; anything
@@ -307,22 +323,96 @@ def write_slot(cache: torch.Tensor, dim: int, index: torch.Tensor,
     return cache
 
 
-def attention_placements(q: DTensor, k: DTensor) -> tuple:
-    """Where attention computes DTensors: on each mesh dim, q's own shard
-    of batch or heads, else replicated. A dim keeps its shard only while
-    the product of the sizes sharding batch divides B, and of those sharding
-    heads divides both H and Kv."""
-    extent = {0: q.shape[0], 2: math.gcd(q.shape[2], k.shape[2])}
-    split = {0: 1, 2: 1}
-    out = []
-    for size, p in zip(q.device_mesh.shape, q.placements):
+@dataclass(frozen=True)
+class AttentionLayout:
+    """Where attention computes DTensors, and what a rank needs for its
+    share under ``local_map``.
+
+    ``q``: the placements of q and of the output; ``kv``: of k and v;
+    ``kv_grad``: of k's and v's gradients, ``Partial()`` on each mesh dim
+    where q is sharded and k, v are whole (a rank's gradient is then a
+    partial sum). ``q_offset``: the key-space position of the rank's first
+    query, ``(T - S) + index * S_local`` with ``index`` its sequence shard.
+    ``kv_heads``: the (start, stop) of the kv heads of its local k, v that
+    its q heads read under the global GQA map ``h // (H / Kv)``, or None
+    for all of them."""
+
+    q: Tuple[Placement, ...]
+    kv: Tuple[Placement, ...]
+    kv_grad: Tuple[Placement, ...]
+    q_offset: int
+    kv_heads: Optional[Tuple[int, int]] = None
+
+    def kv_slice(self, x: torch.Tensor) -> torch.Tensor:
+        """A rank's local k or v (B, T, Kv, D) cut to ``kv_heads``."""
+        if self.kv_heads is None:
+            return x
+        return x[:, :, self.kv_heads[0]:self.kv_heads[1]]
+
+
+def attention_placements(q: DTensor, k: DTensor) -> AttentionLayout:
+    """The reference's attention layout (``_shard_q``, ``_shard_kv``) as XLA
+    partitions it, per mesh dim in mesh order, ``split`` the product of the
+    sizes already used on a tensor dim:
+
+    * batch: q, k, v keep ``Shard(0)`` while the split divides B;
+    * heads: q keeps ``Shard(2)`` while the split divides H and its local
+      heads n and the group G = H / Kv nest (G % n or n % G is 0); k and v
+      keep it too while the split divides Kv, else they are whole there and
+      the rank reads the kv heads its q heads map to;
+    * sequence: q keeps ``Shard(1)`` while the split divides S and the local
+      length passes the flash kernel's block rule; k and v are whole. S = 1
+      (decode) and an S that does not divide stay replicated.
+
+    Anything else computes replicated on that dim."""
+    from repro_torch.kernels.flash_attention import fits_blocks
+    mesh = q.device_mesh
+    b, s, h = q.shape[:3]
+    t, n_kv = k.shape[1], k.shape[2]
+    group = h // n_kv
+    coord = mesh.get_coordinate()
+    split = {0: 1, 1: 1, 2: 1}
+    kv_split, seq_index, head_index = 1, 0, 0
+    whole = Replicate()
+    pq: List[Placement] = []
+    pkv: List[Placement] = []
+    pgrad: List[Placement] = []
+    for m, (size, p) in enumerate(zip(mesh.shape, q.placements)):
         d = p.dim if isinstance(p, Shard) else None
-        if d in extent and extent[d] % (split[d] * size) == 0:
-            split[d] *= size
-            out.append(Shard(d))
+        n = split.get(d, 1) * size
+        keep = False
+        if d == 0:
+            keep = b % n == 0
+        elif d == 2 and h % n == 0:
+            local = h // n
+            keep = group % local == 0 or local % group == 0
+        elif d == 1:
+            keep = s % n == 0 and fits_blocks(s // n)
+        if not keep:
+            pq.append(whole)
+            pkv.append(whole)
+            pgrad.append(whole)
+            continue
+        split[d] = n
+        pq.append(Shard(d))
+        if d == 1:
+            seq_index = seq_index * size + coord[m]
+        if d == 2:
+            head_index = head_index * size + coord[m]
+        if d == 0 or (d == 2 and n_kv % n == 0):
+            kv_split = n if d == 2 else kv_split
+            pkv.append(Shard(d))
+            pgrad.append(Shard(d))
         else:
-            out.append(Replicate())
-    return tuple(out)
+            pkv.append(whole)
+            pgrad.append(Partial())
+    kv_heads = None
+    if split[2] != kv_split:     # q's heads split further than k's and v's
+        local = h // split[2]
+        start = head_index % (split[2] // kv_split) * local // group
+        kv_heads = (start, start + max(1, local // group))
+    return AttentionLayout(tuple(pq), tuple(pkv), tuple(pgrad),
+                           (t - s) + seq_index * (s // split[1]), kv_heads)
 
 
 def on_group_shards(fn, x: DTensor, n_out: int):

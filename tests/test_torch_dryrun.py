@@ -12,13 +12,18 @@ against the reference's pieces.
   each kind over a fake (4,) mesh against ``parse_collectives`` of the same
   reshard jitted on the 4 host devices.
 * A (2, 2) smoke train cell's FLOPs a device against ``parse_hlo_profile``
-  of the reference's compiled step on the same mesh.
+  of the reference's compiled step on the same mesh; two more whose heads
+  do not divide ``model`` (``CELLS``: q over the sequence, and q over
+  heads with k and v whole), their steps flash on and off against the
+  unsharded port's and the reference's, their FLOPs against the
+  reference's less the products XLA splits over ``model``.
 * A step traced on fake tensors against the same step on real ones.
 * A production cell, gemma-7b ``train_4k`` on 16 x 16, ``ok``.
 * xlstm-350m's recurrent cells, traced at S = 16 and 32 and extrapolated
   to the cell's S: at a 2-layer cut the fit equals a direct trace at
   S = 48 in every count, for ``train`` and ``prefill``.
 * The flash op's fake kernel: the CUDA wrapper's contract on ``cuda``.
+* Adafactor's update on DTensors allocates a shard's bytes, not a leaf's.
 """
 import dataclasses
 import json
@@ -73,45 +78,58 @@ from repro.optim import make_optimizer
 
 d = sys.argv[1]
 inp = np.load(os.path.join(d, "inputs.npz"))
-params = {}
-for key in inp.files:
-    if key.startswith("p/"):
-        *path, last = key[2:].split("/")
-        node = params
-        for k in path:
-            node = node.setdefault(k, {})
-        node[last] = inp[key]
-toks = inp["tokens"]
-batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+with open(os.path.join(d, "cells.json")) as f:
+    cells = json.load(f)      # {prefix: config overrides}; "" is gemma's
+
+
+def tree(prefix):
+    params = {}
+    for key in inp.files:
+        if key.startswith(prefix + "p/"):
+            *path, last = key[len(prefix) + 2:].split("/")
+            node = params
+            for k in path:
+                node = node.setdefault(k, {})
+            node[last] = inp[key]
+    return params
+
+
 auto = jax.sharding.AxisType.Auto   # hints, where make_mesh defaults to
 mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(auto,) * 2)
 opt = make_optimizer("adamw", lr=float(inp["lr"]))
 out, counts = {}, {}
-for flash in (False, True):
-    cfg = get_config("gemma-7b", smoke=True).replace(use_flash_kernel=flash)
-    (psh, osh, bsh), pshapes, oshapes = train_in_shardings(cfg, opt, batch,
-                                                           mesh)
-    if flash:
-        grads, metrics = jax.jit(make_grad_step(cfg, mesh),
-                                 in_shardings=(psh, bsh))(
-            jax.device_put(params, psh), jax.device_put(batch, bsh))
-        flat, _ = jax.tree_util.tree_flatten_with_path(grads)
-        out.update({"g/" + "/".join(k.key for k in path): np.asarray(x)
-                    for path, x in flat})
-        out["loss"] = np.float32(metrics["loss"])
-    specs = {k: jax.ShapeDtypeStruct(v.shape, v.dtype)
-             for k, v in batch.items()}
-    compiled = jax.jit(make_train_step(cfg, opt, mesh),
-                       in_shardings=(psh, osh, bsh),
-                       donate_argnums=(0, 1)).lower(
-        pshapes, oshapes, specs).compile()
-    prof = parse_hlo_profile(compiled.as_text())
-    m = compiled.memory_analysis()
-    counts[f"flash={flash}"] = {
-        "flops": prof.flops,
-        "bytes_by_kind": prof.collective_by_kind,
-        "bytes": m.argument_size_in_bytes + m.output_size_in_bytes
-        + m.temp_size_in_bytes - m.alias_size_in_bytes}
+for prefix, over in cells.items():
+    params = tree(prefix)
+    toks = inp[prefix + "tokens"]
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for flash in (False, True):
+        cfg = get_config("gemma-7b", smoke=True).replace(
+            use_flash_kernel=flash, **over)
+        (psh, osh, bsh), pshapes, oshapes = train_in_shardings(
+            cfg, opt, batch, mesh)
+        # gemma's grads with the kernel on; each new cell's with it on and off
+        key = prefix + (f"flash={flash}/" if prefix else "")
+        if flash or prefix:
+            grads, metrics = jax.jit(make_grad_step(cfg, mesh),
+                                     in_shardings=(psh, bsh))(
+                jax.device_put(params, psh), jax.device_put(batch, bsh))
+            flat, _ = jax.tree_util.tree_flatten_with_path(grads)
+            out.update({key + "g/" + "/".join(k.key for k in path):
+                        np.asarray(x) for path, x in flat})
+            out[key + "loss"] = np.float32(metrics["loss"])
+        specs = {k: jax.ShapeDtypeStruct(v.shape, v.dtype)
+                 for k, v in batch.items()}
+        compiled = jax.jit(make_train_step(cfg, opt, mesh),
+                           in_shardings=(psh, osh, bsh),
+                           donate_argnums=(0, 1)).lower(
+            pshapes, oshapes, specs).compile()
+        prof = parse_hlo_profile(compiled.as_text())
+        m = compiled.memory_analysis()
+        counts[f"{prefix}flash={flash}"] = {
+            "flops": prof.flops,
+            "bytes_by_kind": prof.collective_by_kind,
+            "bytes": m.argument_size_in_bytes + m.output_size_in_bytes
+            + m.temp_size_in_bytes - m.alias_size_in_bytes}
 line = jax.make_mesh((4,), ("x",), axis_types=(auto,))
 S0, S1, R = (NamedSharding(line, p) for p in (P("x"), P(None, "x"), P()))
 # a partial sum on each device (its slice of a (4, 16, 64) stack), summed
@@ -139,9 +157,17 @@ with open(os.path.join(d, "jax.json"), "w") as f:
 """
 
 
-def numpy_inputs(arch: str = ARCH):
-    """Smoke weights of ``arch`` and a batch from numpy seed 0."""
-    cfg = get_config(arch, smoke=True)
+# Smoke gemma-7b with heads that do not divide ``model``'s 2, as the
+# reference lays them out: q over the sequence (H = 3), and q over heads
+# with k and v whole (H = 4, Kv = 1).
+CELLS = {"seq": {"n_heads": 3, "n_kv": 1},
+         "heads-whole-kv": {"n_heads": 4, "n_kv": 1}}
+
+
+def numpy_inputs(arch: str = ARCH, **over):
+    """Smoke weights of ``arch`` (its config ``.replace``d by ``over``) and
+    a batch from numpy seed 0."""
+    cfg = get_config(arch, smoke=True).replace(**over)
     rng = np.random.default_rng(0)
     params = tree_map(lambda s: (0.1 * rng.standard_normal(s))
                       .astype(np.float32), tt.param_shapes(cfg))
@@ -157,11 +183,11 @@ def paths(tree, prefix: str = ""):
         yield prefix, tree
 
 
-def _grad_step(mesh, arch: str = ARCH) -> dict:
-    """The flash-on grad step's loss and gradients, on ``mesh`` or (None)
-    unsharded."""
-    cfg, params, tokens = numpy_inputs(arch)
-    cfg = cfg.replace(use_flash_kernel=True)
+def _grad_step(mesh, arch: str = ARCH, flash: bool = True, **over) -> dict:
+    """The grad step's loss and gradients, on ``mesh`` or (None)
+    unsharded, the flash kernel on unless ``flash`` is False."""
+    cfg, params, tokens = numpy_inputs(arch, **over)
+    cfg = cfg.replace(use_flash_kernel=flash)
     batch = {"tokens": torch.from_numpy(tokens[:, :-1]),
              "labels": torch.from_numpy(tokens[:, 1:])}
     tp = params_from_numpy(params, "cpu")
@@ -244,7 +270,11 @@ def _rank_main(rank: int, world: int, d: str) -> None:
                  **{"decode/" + k: v for k, v in _decode(mesh).items()},
                  **{MOE + "/" + k: v
                     for k, v in _grad_step(mesh, MOE).items()},
-                 **_einsum_cases(mesh)}
+                 **_einsum_cases(mesh),
+                 **{f"{cell}/flash={flash}/{k}": v
+                    for cell, flash in CELL_RUNS
+                    for k, v in _grad_step(mesh, flash=flash,
+                                           **CELLS[cell]).items()}}
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -256,9 +286,15 @@ def runs(tmp_path_factory):
     """(port on 4 gloo ranks, reference on 4 host devices, the reference's
     counts) run side by side."""
     d = str(tmp_path_factory.mktemp("dryrun"))
-    _, params, tokens = numpy_inputs()
-    np.savez(os.path.join(d, "inputs.npz"), tokens=tokens, lr=LR,
-             **{"p/" + path: x for path, x in paths(params)})
+    cells = {"": {}, **{cell + "/": over for cell, over in CELLS.items()}}
+    inputs = {"lr": LR}
+    for prefix, over in cells.items():
+        _, params, tokens = numpy_inputs(**over)
+        inputs[prefix + "tokens"] = tokens
+        inputs.update({prefix + "p/" + path: x for path, x in paths(params)})
+    np.savez(os.path.join(d, "inputs.npz"), **inputs)
+    with open(os.path.join(d, "cells.json"), "w") as f:
+        json.dump(cells, f)
     ref_run = subprocess.Popen([sys.executable, "-c", JAX_REF, d], cwd=ROOT,
                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                text=True)
@@ -286,6 +322,15 @@ def unsharded():
     return _grad_step(None)
 
 
+CELL_RUNS = [(cell, flash) for cell in CELLS for flash in (False, True)]
+
+
+@pytest.fixture(scope="module")
+def unsharded_cells():
+    return {(cell, flash): _grad_step(None, flash=flash, **CELLS[cell])
+            for cell, flash in CELL_RUNS}
+
+
 # ---------------------------------------------------------------------------
 # The sharded flash step (fault 1) and decode on the mesh
 # ---------------------------------------------------------------------------
@@ -297,7 +342,13 @@ def test_sharded_flash_step_matches(against, runs, unsharded):
     DTensors (the kernel's VJP under ``local_map``) and its loss and every
     gradient hold to the sharding tests' bounds."""
     port, jref, _ = runs
-    want = unsharded if against == "unsharded port" else jref
+    _assert_step_matches(port, unsharded if against == "unsharded port"
+                         else jref)
+
+
+def _assert_step_matches(port: dict, want: dict) -> None:
+    """The loss within 1e-5 relative and each gradient within 1e-4 of its
+    norm: the sharding tests' bounds."""
     np.testing.assert_allclose(port["loss"], want["loss"], rtol=1e-5)
     keys = sorted(k for k in want if k.startswith("g/"))
     assert keys and keys == sorted(k for k in port if k.startswith("g/"))
@@ -305,6 +356,29 @@ def test_sharded_flash_step_matches(against, runs, unsharded):
         scale = np.linalg.norm(want[k])
         assert scale > 0, k
         assert np.linalg.norm(port[k] - want[k]) <= 1e-4 * scale, k
+
+
+def _cell_run(found: dict, cell: str, flash: bool) -> dict:
+    prefix = f"{cell}/flash={flash}/"
+    return {k[len(prefix):]: v for k, v in found.items()
+            if k.startswith(prefix)}
+
+
+@pytest.mark.parametrize("against", ["unsharded port", "reference"])
+@pytest.mark.parametrize("flash", [False, True])
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_attention_cell_step_matches(cell, flash, against, runs,
+                                     unsharded_cells):
+    """The (2, 2) steps whose heads do not divide ``model``, flash on and
+    off: "seq" computes attention on q's sequence shards at each rank's
+    query offset, "heads-whole-kv" on q's head shards with k and v whole,
+    each rank reading its one kv head; k's and v's gradients come back as
+    partial sums. Held as the gemma step is, against the unsharded port
+    step and the reference's step on 4 host devices."""
+    port, jref, _ = runs
+    want = (unsharded_cells[cell, flash] if against == "unsharded port"
+            else _cell_run(jref, cell, flash))
+    _assert_step_matches(_cell_run(port, cell, flash), want)
 
 
 def test_sharded_moe_step_matches_the_unsharded_step(runs):
@@ -424,8 +498,9 @@ def test_one_reshard_counts_what_the_reference_parses(kind, runs):
 # ---------------------------------------------------------------------------
 
 
-def _smoke_cell(flash: bool, fake: bool = True):
-    cfg = get_config(ARCH, smoke=True).replace(use_flash_kernel=flash)
+def _smoke_cell(flash: bool, fake: bool = True, **over):
+    cfg = get_config(ARCH, smoke=True).replace(use_flash_kernel=flash,
+                                               **over)
     with dryrun.fake_process_group(4):
         mesh = make_debug_mesh((2, 2), device_type="cpu")
         out = dryrun.trace_step(cfg, ShapeSpec("smoke", S, B, "train"),
@@ -458,6 +533,40 @@ def test_smoke_cell_flops_a_device_match_the_reference(flash, runs):
           f"{want['bytes_by_kind']}); bytes a device {got.peak_bytes} "
           f"(reference {want['bytes']}); local op bytes / XLA's "
           f"fusion-bounded bytes not compared here")
+    assert got.flops == want["flops"] + gap
+
+
+# Products that XLA's partitioner splits over ``model`` where the layout
+# leaves them whole there, and DTensor runs them whole on each rank: the
+# weight gradients of wk and wv (k and v whole over ``model``), and with q
+# over the sequence also k's forward product and the k and v input
+# gradients, on half the sequence each (v's forward stays whole).
+KV_SPLIT = {"seq": 5, "heads-whole-kv": 2}
+
+
+@pytest.mark.parametrize("flash", [False, True])
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_attention_cell_flops_a_device(cell, flash, runs):
+    """FLOPs a device of the cells whose heads do not divide ``model``
+    against ``parse_hlo_profile`` of the reference's compiled step: equal
+    but for the products XLA splits over ``model`` (``KV_SPLIT`` a layer,
+    each v = 2·(B/2)·(S/2)·d·Kv·D) and, with flash on, the gemma cell's
+    3u a layer, u = 2·(B/2)·H·S·S·D / 2 (model's 2 split the heads or the
+    sequence). q's product runs on its sequence shard, as XLA carries
+    ``act_heads_seq`` back into it. Collective bytes and bytes a device
+    printed beside the reference's."""
+    cfg, got = _smoke_cell(flash, **CELLS[cell])
+    want = runs[2][f"{cell}/flash={flash}"]
+    d, kv, hd = cfg.d_model, cfg.n_kv, cfg.head_dim
+    gap = cfg.n_layers * KV_SPLIT[cell] * 2 * (B // 2) * (S // 2) * d * kv * hd
+    if flash:
+        u = 2 * (B // 2) * cfg.n_heads * S * S * hd // 2
+        gap += cfg.n_layers * 3 * u
+    print(f"\n{cell} flash={flash}: FLOPs a device {got.flops} (reference "
+          f"{want['flops']:.0f} + {gap}); collective wire bytes "
+          f"{got.collectives.bytes_by_kind} (reference "
+          f"{want['bytes_by_kind']}); bytes a device {got.peak_bytes} "
+          f"(reference {want['bytes']})")
     assert got.flops == want["flops"] + gap
 
 
@@ -674,3 +783,42 @@ def test_only_recurrent_train_and_prefill_cells_are_extrapolated(arch,
                                   SHAPES[shape]) == (256, 384)
         assert dryrun.fit_lengths(cfg, dataclasses.replace(
             SHAPES[shape], seq_len=32)) is None
+
+
+# ---------------------------------------------------------------------------
+# Adafactor's second moment on DTensors
+# ---------------------------------------------------------------------------
+
+
+def _adafactor_temp_bytes(make, mesh=None):
+    """The bytes one Adafactor update of a (4, 64, 128) leaf allocates at
+    its peak, its factors replicated on ``mesh`` as the reference's specs
+    lay them out."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.core import flop_count as fc
+    opt = make_optimizer("adafactor", lr=1e-2)
+    p, g = make((4, 64, 128)), make((4, 64, 128))
+    state = opt.init({"w": p})
+    if mesh is not None:
+        state["v"]["w"] = {k: distribute_tensor(torch.zeros(v.shape), mesh,
+                                                [R, R])
+                           for k, v in state["v"]["w"].items()}
+    c = fc.count_device(opt.update, {"w": g}, state, {"w": p},
+                        arguments=[p, g, *state["v"]["w"].values()])
+    return c.peak_bytes - c.argument_bytes
+
+
+def test_adafactor_update_on_dtensors_allocates_a_shard():
+    """A leaf sharded (data over dim 0, model over dim 2) with the
+    reference's replicated row and column factors: the update's second
+    moment is built in the gradient's layout, so a rank allocates what the
+    same update of its shard alone allocates, not the whole leaf (arctic-
+    480b's `train_4k` peak held the stacked experts' estimate whole)."""
+    from torch.distributed.tensor import distribute_tensor
+    local = _adafactor_temp_bytes(lambda s: torch.ones(s[0] // 2, s[1],
+                                                       s[2] // 2))
+    with dryrun.fake_process_group(4):
+        mesh = make_debug_mesh((2, 2), device_type="cpu")
+        sharded = _adafactor_temp_bytes(
+            lambda s: distribute_tensor(torch.ones(s), mesh, [S0, S2]), mesh)
+    assert local <= sharded < 1.5 * local

@@ -98,6 +98,47 @@ def test_plain_reference_matches_jax_reference():
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
 
 
+OFFSET_SHARDS = 4     # the sequence cut into 4 shards of S / 4 queries
+
+
+@pytest.mark.parametrize("shard", [0, OFFSET_SHARDS - 1])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_query_offset_rows_match_the_whole_sequence(dtype, window, shard):
+    """A sequence shard's queries at their own offset: the plain version
+    with ``q_offset = r·S/n`` on rows [r·S/n, (r+1)·S/n) and whole k, v
+    equals those rows of the JAX package's plain version on the whole
+    sequence, causal, with and without a window."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    (jq, jk, jv), (q, k, v) = qkv(2, 512, 4, 2, 64, dtype)
+    rows = slice(shard * 512 // OFFSET_SHARDS,
+                 (shard + 1) * 512 // OFFSET_SHARDS)
+    want = np.asarray(jax_ref.flash_attention_ref(
+        jq, jk, jv, causal=True, window=window), np.float32)[:, rows]
+    got = flash_attention_ref(q[:, rows], k, v, causal=True, window=window,
+                              q_offset=rows.start)
+    assert got.dtype == TORCH[dtype]
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("q_offset,ok", [(-1, False), (0, True),
+                                         (384, True), (385, False)])
+def test_fake_kernel_holds_the_query_offset_range(q_offset, ok):
+    """On fake ``cuda`` tensors the op takes a causal offset in [0, T - S]
+    (S = 128, T = 512) and refuses one outside, as the CUDA wrapper does."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        q = torch.zeros((1, 128, 4, 64), dtype=torch.bfloat16, device="cuda")
+        k = torch.zeros((1, 512, 2, 64), dtype=torch.bfloat16, device="cuda")
+        op = torch.ops.repro_torch.flash_attention_fwd
+        if ok:
+            assert op(q, k, k, True, 0, q_offset).shape == q.shape
+        else:
+            with pytest.raises(ValueError, match="q_offset"):
+                op(q, k, k, True, 0, q_offset)
+
+
 def test_undividable_seq_raises_like_jax():
     (jq, jk, jv), (q, k, v) = qkv(1, 200, 2, 2, 64, "float32")
     with pytest.raises(ValueError, match="must divide blocks"):
@@ -165,8 +206,9 @@ def test_flash_wrapper_routes_each_dtype(dtype, entry, causal, window,
     args = lib.calls[0][1]
     assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr())
+    # ..., causal, window, the query offset (T - S by default), the stream
     assert args[4:] == (2, 256, 256, 4, 2, 128, int(causal),
-                        window if causal else 0, 0)
+                        window if causal else 0, 0, 0)
     assert out.dtype == q.dtype and out.shape == q.shape
     assert mod.flash_attention_fwd.launches == before + 1
 

@@ -26,7 +26,8 @@ import pytest
 import torch
 import torch.distributed as dist
 from jax.sharding import AbstractMesh
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro.configs import get_config as jax_config
 from repro.configs import get_optimizer_name as jax_optimizer_name
@@ -227,21 +228,43 @@ def test_role_size(meshes):
     assert sh.role_size("batch") == 1
 
 
+@pytest.mark.parametrize("multi_pod", [False, True], ids=MESH_IDS)
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_flash_keeps_heads_over_model_on_the_production_mesh(arch, meshes):
-    """q, k, v as the attention block shards them on (2, 16, 16): the flash
-    kernel computes in batch over pod x data and, where the heads shard
-    over model's 16 (H and Kv divide 16), in heads over model alone."""
+def test_flash_keeps_heads_over_model_on_the_production_mesh(arch, multi_pod,
+                                                             meshes):
+    """q, k, v as the attention block shards them at ``train_4k``'s S =
+    4096 on the production meshes: attention computes in batch over pod x
+    data and, over model's 16, in the reference's layout: q's heads where
+    H divides 16, with k and v too where Kv does, else k and v whole and
+    each rank on the kv head its q heads read (llama-3.2-vision-90b,
+    granite-8b); q's sequence where H does not divide 16 (arctic-480b,
+    phi4-mini, starcoder2-7b, recurrentgemma-2b, whisper-small, and
+    xlstm-350m's heads, which no attention reads), k and v whole."""
+    from torch.distributed.device_mesh import DeviceMesh
     from repro_torch.models.layers import _shard_kv, _shard_q
     cfg, mesh = get_config(arch), meshes[True]
+    if not multi_pod:     # 16 x 16 inside the 512-rank group, which is up
+        shape, names = MESHES[False]
+        mesh = DeviceMesh("cpu", torch.arange(256).view(shape),
+                          mesh_dim_names=names)
     h, kv = cfg.n_heads, cfg.n_kv
+    batch = (S0,) * (mesh.ndim - 1)
 
     def dt(n):
-        return distribute_tensor(torch.zeros(32, 16, n, 2), mesh, [R] * 3)
+        x = torch.zeros(32, 4096, n, 1)
+        return distribute_tensor(x, mesh, [R] * mesh.ndim)
     with sh.use_mesh(mesh):
         q, k = _shard_q(dt(h)), _shard_kv(dt(kv))
-    heads = S2 if h % 16 == 0 and kv % 16 == 0 else R
-    assert ops._flash_placements(q, k) == (S0, S0, heads)
+    lay = ops._flash_placements(q, k)
+    if h % 16:
+        want = (S1, R, Partial(), None)
+    elif kv % 16:
+        want = (S2, R, Partial(), (0, 1))   # rank 0's q heads read kv head 0
+    else:
+        want = (S2, S2, S2, None)
+    assert (lay.q, lay.kv, lay.kv_grad, lay.kv_heads) == tuple(
+        (*batch, w) if i < 3 else w for i, w in enumerate(want))
+    assert lay.q_offset == 0     # rank 0 holds the first queries
 
 
 def test_a_dim_over_several_axes_keeps_the_mesh_order(meshes):
@@ -306,19 +329,30 @@ np.savez(os.path.join(d, "jax.npz"), loss=np.float32(metrics["loss"]), **out)
 """
 
 FLASH_CASES = {   # name: ((H, Kv), q/k/v placements on ("data", "model"),
-    #                      the placements attention computes in); B = 2
-    "replicated": ((4, 4), (R, R), (R, R)),
-    "batch-heads": ((4, 4), (S0, S2), (S0, S2)),
-    "batch-seq": ((4, 4), (S0, S1), (S0, R)),
-    "seq-heads": ((4, 4), (S1, S2), (R, S2)),
-    "batch-batch": ((4, 4), (S0, S0), (S0, R)),        # B = 2 over 4
-    "heads-heads": ((4, 4), (S2, S2), (S2, S2)),
-    # heads over model alone need only H and Kv to divide model's 2
-    "two-heads": ((2, 2), (S0, S2), (S0, S2)),
-    "gqa-batch-heads": ((4, 2), (S0, S2), (S0, S2)),
-    "gqa-heads-heads": ((4, 2), (S2, S2), (S2, R)),    # Kv = 2 over 4
-    "mqa-batch-heads": ((4, 1), (S0, S2), (S0, R)),    # Kv = 1 over 2
+    #                      where q and where k, v compute, rank 0's kv
+    #                      heads (None: all), window); B = 2, S = 256
+    "replicated": ((4, 4), (R, R), (R, R), (R, R), None, 0),
+    "batch-heads": ((4, 4), (S0, S2), (S0, S2), (S0, S2), None, 0),
+    "batch-seq": ((4, 4), (S0, S1), (S0, S1), (S0, R), None, 0),
+    "seq-heads": ((4, 4), (S1, S2), (S1, S2), (R, S2), None, 0),
+    "batch-batch": ((4, 4), (S0, S0), (S0, R), (S0, R), None, 0),  # B = 2
+    "heads-heads": ((4, 4), (S2, S2), (S2, S2), (S2, S2), None, 0),
+    "two-heads": ((2, 2), (S0, S2), (S0, S2), (S0, S2), None, 0),
+    "gqa-batch-heads": ((4, 2), (S0, S2), (S0, S2), (S0, S2), None, 0),
+    # Kv = 2 over 4: k, v whole over model, each rank on its one kv head
+    "gqa-heads-heads": ((4, 2), (S2, S2), (S2, S2), (S2, R), (0, 1), 0),
+    "mqa-batch-heads": ((4, 1), (S0, S2), (S0, S2), (S0, R), (0, 1), 0),
+    # the sequence over model, causal, without and with a window, and
+    # over both mesh dims (each rank at its own query offset)
+    "seq-model": ((4, 2), (R, S1), (R, S1), (R, R), None, 0),
+    "seq-model-window": ((4, 2), (R, S1), (R, S1), (R, R), None, 64),
+    "seq-seq": ((4, 1), (S1, S1), (S1, S1), (R, R), None, 0),
 }
+# The plain attention cores on DTensors: q, k, v (2, 256, 4 / 1, 16) with
+# q over model's sequence (batch over data), a causal mask sharded by its
+# query rows, or the chunked core at the rank's query offset.
+CORE_CASES = {"mask": 0, "mask-window": 64, "chunked": 0,
+              "chunked-window": 64}
 SCAN_CASES = {
     "replicated": (Replicate(), Replicate()),
     "batch-width": (Shard(0), Shard(2)),
@@ -363,22 +397,28 @@ def _kernel_rules(mesh) -> dict:
     gradients' largest difference, and the placements it computed in."""
     out = {}
     gen = torch.Generator().manual_seed(0)
-    for name, ((h, kv), pl, _) in FLASH_CASES.items():
+    for name, ((h, kv), pl, *_, window) in FLASH_CASES.items():
         shapes = [(2, 256, h, 16), (2, 256, kv, 16), (2, 256, kv, 16)]
         q, k, v = (torch.randn(s, generator=gen) for s in shapes)
         g = torch.randn(shapes[0], generator=gen)
         plain = [x.clone().requires_grad_() for x in (q, k, v)]
-        want = ref.flash_attention_ref(*plain, causal=True)
+        want = ref.flash_attention_ref(*plain, causal=True, window=window)
         want.backward(g)
         dts = [distribute_tensor(x, mesh, pl).requires_grad_()
                for x in (q, k, v)]
-        got = ops.flash_attention(*dts, causal=True)
+        got = ops.flash_attention(*dts, causal=True, window=window)
         got.backward(distribute_tensor(g, mesh, got.placements))
         out[f"flash/{name}/err"] = (got.full_tensor() - want).abs().max()
         out[f"flash/{name}/grad_err"] = max(
             (d.grad.full_tensor() - p.grad).abs().max()
             for d, p in zip(dts, plain))
+        out[f"flash/{name}/grad_rel"] = max(
+            (d.grad.full_tensor() - p.grad).abs().max() / p.grad.abs().max()
+            for d, p in zip(dts, plain))
         out[f"flash/{name}/placements"] = str(tuple(got.placements))
+        lay = ops._flash_placements(*dts[:2])
+        out[f"flash/{name}/kv"] = str((lay.kv, lay.kv_heads))
+    out.update(_core_rules(mesh, gen))
     for name, pl in SCAN_CASES.items():
         a = torch.sigmoid(torch.randn(2, 512, 256, generator=gen)) * 0.2 + 0.8
         b = 0.1 * torch.randn(2, 512, 256, generator=gen)
@@ -396,6 +436,40 @@ def _kernel_rules(mesh) -> dict:
         out[f"scan/{name}/placements"] = str(tuple(got.placements))
     return {k: v.item() if isinstance(v, torch.Tensor) else v
             for k, v in out.items()}
+
+
+def _core_rules(mesh, gen) -> dict:
+    """``CORE_CASES`` on DTensors against the plain calls."""
+    from types import SimpleNamespace
+    from repro_torch.models import layers
+    out = {}
+    for name, window in CORE_CASES.items():
+        shapes = [(2, 256, 4, 16), (2, 256, 1, 16), (2, 256, 1, 16)]
+        qkv = [torch.randn(s, generator=gen) for s in shapes]
+        g = torch.randn(shapes[0], generator=gen)
+        if name.startswith("mask"):
+            mask = layers.causal_mask(256, 256, "cpu", window=window)
+
+            def core(q, k, v):
+                return layers.mha_logits_to_out(q, k, v, mask, None)
+        else:
+            cfg = SimpleNamespace(attention_chunk=64)
+
+            def core(q, k, v):
+                return layers.chunked_attention(q, k, v, cfg, window=window)
+        plain = [x.clone().requires_grad_() for x in qkv]
+        want = core(*plain)
+        want.backward(g)
+        dts = [distribute_tensor(x, mesh, (S0, S1)).requires_grad_()
+               for x in qkv]
+        got = core(*dts)
+        got.backward(distribute_tensor(g, mesh, got.placements))
+        out[f"core/{name}/err"] = (got.full_tensor() - want).abs().max()
+        out[f"core/{name}/grad_rel"] = max(
+            (d.grad.full_tensor() - p.grad).abs().max() / p.grad.abs().max()
+            for d, p in zip(dts, plain))
+        out[f"core/{name}/placements"] = str(tuple(got.placements))
+    return out
 
 
 def _rank_main(rank: int, world: int, d: str) -> None:
@@ -479,15 +553,34 @@ def test_sharded_step_keeps_every_placement(sharded):
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_flash_rule_on_dtensors(name, sharded):
     """Attention on DTensors equals the plain call (1e-6: a shard's
-    products may be blocked otherwise). It keeps q's batch and heads
-    shards, never a sequence shard, and heads only over mesh dims whose
-    sizes' product divides H and Kv."""
+    products may be blocked otherwise). It keeps q's batch, heads and
+    sequence shards where they divide; k and v keep batch and the heads
+    shards whose product divides Kv, and are whole elsewhere, each rank
+    reading the kv heads its q heads map to. Gradients within 1e-6, of
+    their largest magnitude where k's and v's are partial sums."""
     port, _ = sharded
+    _, _, q_at, kv_at, heads, _ = FLASH_CASES[name]
     assert port[f"flash/{name}/err"] <= 1e-6
-    assert port[f"flash/{name}/grad_err"] <= 1e-6
-    placements = str(port[f"flash/{name}/placements"])
-    assert "Shard(dim=1)" not in placements
-    assert placements == str(FLASH_CASES[name][2])
+    if any(p != R and pkv == R for p, pkv in zip(q_at, kv_at)):
+        # k's and v's gradients are sums over the ranks, in another order
+        # of addition than the plain call's: 1e-6 of each one's largest
+        assert port[f"flash/{name}/grad_rel"] <= 1e-6
+    else:
+        assert port[f"flash/{name}/grad_err"] <= 1e-6
+    assert str(port[f"flash/{name}/placements"]) == str(q_at)
+    assert str(port[f"flash/{name}/kv"]) == str((kv_at, heads))
+
+
+@pytest.mark.parametrize("name", sorted(CORE_CASES))
+def test_attention_core_on_dtensors(name, sharded):
+    """The plain cores with q over model's sequence: the output equals the
+    plain call's (1e-6) and the gradients within 1e-6 of their largest
+    magnitude (k's and v's are sums over the ranks); the output is over
+    the sequence as q is."""
+    port, _ = sharded
+    assert port[f"core/{name}/err"] <= 1e-6
+    assert port[f"core/{name}/grad_rel"] <= 1e-6
+    assert str(port[f"core/{name}/placements"]) == str((S0, S1))
 
 
 @pytest.mark.parametrize("name", sorted(SCAN_CASES))
