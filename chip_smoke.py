@@ -225,13 +225,16 @@ for each source, all started together), then
           and FLOPs a device, collective wire bytes by kind, the three
           roofline terms under the H100 SXM5 constants, the bottleneck,
           ``mfu_bound`` and the trace's seconds; each train cell's
-          ``useful_flops_ratio`` at most 1; bytes and FLOPs a device beside
-          the counts before the reference's attention layout
-          (``DRYRUN_BEFORE``): arctic-480b's and llama-3.2-vision-90b's
-          below them, gemma-7b's equal; and xlstm-350m ``train_4k`` on 16 x
-          16, whose sLSTM /
-          mLSTM time loop is traced at S = 16 and 32 and extrapolated to
-          4096 (its record's ``extrapolated`` key printed);
+          ``useful_flops_ratio`` at most 1; the peak split by op and its
+          five largest live tensors with the model lines that made them
+          (``memory.peak_tensors``); bytes and FLOPs a device beside the
+          counts before the moves were ordered (``DRYRUN_BEFORE``): FLOPs
+          equal, bytes not above, arctic-480b's at most 70.0 GiB (under an
+          80 GB card's 74.5) with its all-gather plus reduce-scatter wire
+          bytes under half, llama-3.2-vision-90b's at most 115 GiB; and
+          xlstm-350m ``train_4k`` on 16 x 16, whose sLSTM / mLSTM time loop
+          is traced at S = 16 and 32 and extrapolated to 4096 (its record's
+          ``extrapolated`` key printed);
  14. the paper's PS-cluster pipeline (``core/predictor.py``, the cluster
      emulator, the DES; host Python, no tensor work) on the card machine's
      own Python and torch, its times host seconds:
@@ -500,19 +503,25 @@ DRYRUN_CELLS = [        # 13b: (arch, shape, multi_pod)
     ("phi4-mini-3.8b", "train_4k", False),
     # the sLSTM / mLSTM time loop: traced at S = 16 and 32, extrapolated
     (XLSTM, "train_4k", False)]
-# 13b: the cells' bytes (GiB) and FLOPs a device before the sharded
-# attention took the reference's layout (the card's counts, unchanged over
-# several runs); arctic-480b's and llama-3.2-vision-90b's must fall below
-# them and gemma-7b's stay equal at these digits (its heads divide model).
-# The reference's XLA count for arctic-480b: 57.86 GiB.
+# 13b: the cells' bytes (GiB) and FLOPs a device before the sharded step
+# stopped building whole global tensors on each rank (the card's counts with
+# the reference's attention layout, unchanged over several runs). FLOPs
+# must stay equal at these digits and bytes not rise; arctic-480b's and
+# llama-3.2-vision-90b's bytes must fall to ``DRYRUN_LIMIT_GIB``, arctic's
+# under an 80 GB card's 74.5 GiB, and arctic's all-gather plus
+# reduce-scatter wire bytes under half of ``DRYRUN_WIRE_BEFORE``. The
+# reference's XLA count for arctic-480b: 57.86 GiB.
 DRYRUN_BEFORE = {("gemma-7b", "train_4k", False): (35.94, 2.9448e14),
                  ("gemma-7b", "prefill_32k", False): (9.37, 1.3151e14),
                  ("gemma-7b", "decode_32k", False): (13.78, 1.6054e10),
                  ("gemma-7b", "train_4k", True): (16.32, 1.4724e14),
-                 ("arctic-480b", "train_4k", False): (1219.98, 4.2079e15),
+                 ("arctic-480b", "train_4k", False): (139.85, 1.1774e15),
                  ("llama-3.2-vision-90b", "train_4k", False):
-                 (300.39, 7.2849e15)}
-DRYRUN_FALL = ("arctic-480b", "llama-3.2-vision-90b")
+                 (122.91, 3.7285e15),
+                 ("phi4-mini-3.8b", "train_4k", False): (32.71, 2.4601e14)}
+DRYRUN_LIMIT_GIB = {"arctic-480b": 70.0, "llama-3.2-vision-90b": 115.0}
+CARD_GIB = 74.5         # 80 GB
+DRYRUN_WIRE_BEFORE = {"arctic-480b": 1.846e12 + 1.296e12}
 REFERENCE_GIB = {"arctic-480b": 57.86}
 COMM_KINDS = (("all_gather", "all-gather"), ("reduce_scatter",
               "reduce-scatter"), ("all_reduce", "all-reduce"),
@@ -2749,22 +2758,36 @@ def production_cells_phase() -> None:
         print(f"{head}: the peak's GiB by the op that allocated them: "
               + ", ".join(f"{op} {b / 2**30:.2f}" for op, b in
                           rec["memory"]["peak_by_op"].items()), flush=True)
+        print(f"{head}: the largest tensors live at the peak: "
+              + "; ".join(f"{t['bytes'] / 2**30:.2f} GiB {t['op']} "
+                          f"{t['dtype']} {tuple(t['shape'])} at "
+                          f"{t['site'] or 'the step'}"
+                          for t in rec["memory"]["peak_tensors"]),
+              flush=True)
         before = DRYRUN_BEFORE.get((arch, shape, multi_pod))
         if before is None:
             continue
         gib = rec["memory"]["total_bytes_per_device"] / 2**30
         print(f"{head}: {gib:.2f} GiB and {r['flops']:.4e} FLOPs a device "
               f"against {before[0]:.2f} GiB and {before[1]:.4e} before the "
-              f"reference's attention layout"
+              f"ordered moves"
               + (f"; the reference's XLA count {REFERENCE_GIB[arch]} GiB"
                  if arch in REFERENCE_GIB else ""), flush=True)
-        if arch in DRYRUN_FALL:
-            require(gib < before[0] and r["flops"] < before[1],
-                    f"{head}: the counts did not fall")
-        else:
-            require(f"{gib:.2f} {r['flops']:.4e}"
-                    == f"{before[0]:.2f} {before[1]:.4e}",
-                    f"{head}: the counts moved")
+        require(f"{r['flops']:.4e}" == f"{before[1]:.4e}",
+                f"{head}: the FLOPs moved")
+        require(round(gib, 2) <= before[0], f"{head}: the bytes rose")
+        if arch in DRYRUN_LIMIT_GIB:
+            require(gib <= DRYRUN_LIMIT_GIB[arch],
+                    f"{head}: above {DRYRUN_LIMIT_GIB[arch]} GiB a device")
+        if arch == "arctic-480b":
+            require(gib < CARD_GIB, f"{head}: does not fit an 80 GB card")
+        if arch in DRYRUN_WIRE_BEFORE:
+            wire = coll.get("all-gather", 0) + coll.get("reduce-scatter", 0)
+            print(f"{head}: all-gather plus reduce-scatter wire bytes "
+                  f"{wire:.4e} against {DRYRUN_WIRE_BEFORE[arch]:.4e} "
+                  f"before", flush=True)
+            require(wire < DRYRUN_WIRE_BEFORE[arch] / 2,
+                    f"{head}: the gather and scatter bytes did not halve")
 
 
 def paper_phase(card: str) -> None:

@@ -25,6 +25,8 @@ holds NVIDIA's data-sheet values for the H100 SXM5.
 """
 from __future__ import annotations
 
+import heapq
+import os
 import sys
 import weakref
 from dataclasses import dataclass, field
@@ -128,9 +130,11 @@ class DeviceCounts:
     ops allocate while it runs, the counterpart of ``memory_analysis``'s
     argument + output + temp - alias (the optimizer updates in place where
     the reference donates). ``peak_by_op`` splits the peak by the op that
-    allocated each live storage (``"arguments"`` for the step's own).
-    ``local_ops`` counts the ops counted; ``ops`` holds per-op totals by op
-    name."""
+    allocated each live storage (``"arguments"`` for the step's own);
+    ``peak_tensors`` names the largest storages live at the peak: bytes, op,
+    shape and dtype of the tensor that allocated each, and the call site
+    (:func:`_call_site`). ``local_ops`` counts the ops counted; ``ops``
+    holds per-op totals by op name."""
 
     flops: int = 0
     hbm_bytes: int = 0
@@ -138,6 +142,7 @@ class DeviceCounts:
     argument_bytes: int = 0
     peak_bytes: int = 0
     peak_by_op: Dict[str, int] = field(default_factory=dict)
+    peak_tensors: List[Dict] = field(default_factory=list)
     collectives: CollectiveStats = field(default_factory=CollectiveStats)
     ops: Dict[str, Dict] = field(default_factory=dict)
 
@@ -187,6 +192,30 @@ _VIEWS = ("aten::_unsafe_view", "_c10d_functional::wait_tensor",
 _PROPAGATION_FILE = "tensor/_sharding_prop.py"
 
 
+# the package's root, and the layers below the model that only pass a
+# tensor on: a call site is the innermost frame of the package outside them
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__))) + os.sep
+_PASS_ON = tuple(_PACKAGE + d + os.sep for d in ("core", "parallel"))
+
+# the live storages ``peak_tensors`` lists
+PEAK_TENSORS = 5
+
+
+def _call_site() -> str:
+    """``file:line`` (relative to the package) of the innermost frame of
+    ``repro_torch`` outside ``core/`` and ``parallel/``: the model line
+    that asked for the op (``models/moe.py:151`` for the MoE's dispatch
+    move), or the step's line where autograd runs a backward; "" if
+    none."""
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        if name.startswith(_PACKAGE) and not name.startswith(_PASS_ON):
+            return f"{name[len(_PACKAGE):]}:{f.f_lineno}"
+        f = f.f_back
+    return ""
+
+
 def _in_sharding_propagation() -> bool:
     f = sys._getframe(2)
     while f is not None:
@@ -217,26 +246,46 @@ class DeviceCounter(TorchDispatchMode):
         self._fake_mode = active_fake_mode()
         # storage id -> (bytes, the op that allocated it)
         self._live: Dict[int, Tuple[int, str]] = {}
+        # storage id -> (shape, dtype, call site) of the allocating tensor
+        self._where: Dict[int, Tuple[Tuple[int, ...], str, str]] = {}
         self._refs: Dict[int, weakref.ref] = {}
         self._live_bytes = 0
         self._by_op: Dict[str, int] = {}
         for t in arguments:
-            self._track(_local(t), "arguments")
+            self._track(_local(t), "arguments", "")
         self.counts.argument_bytes = self.counts.peak_bytes = self._live_bytes
         self.counts.peak_by_op = dict(self._by_op)
+        # the live set is the peak's until the next free: ``peak_tensors``
+        # is taken then (or at the end), not at every new peak of a climb
+        self._peak_pending = True
 
-    def _track(self, t: torch.Tensor, owner: str) -> None:
+    def _track(self, t: torch.Tensor, owner: str, site: str) -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._live:
             return
         self._live[key] = (st.nbytes(), owner)
+        self._where[key] = (tuple(t.shape), str(t.dtype), site)
         self._live_bytes += st.nbytes()
         self._by_op[owner] = self._by_op.get(owner, 0) + st.nbytes()
         self._refs[key] = weakref.ref(st, lambda _, k=key: self._free(k))
 
+    def _take_peak_tensors(self) -> None:
+        if not self._peak_pending:
+            return
+        self._peak_pending = False
+        top = heapq.nlargest(PEAK_TENSORS, self._live.items(),
+                             key=lambda kv: kv[1][0])
+        self.counts.peak_tensors = [
+            {"bytes": nbytes, "op": owner, "shape": list(shape),
+             "dtype": dtype, "site": site}
+            for key, (nbytes, owner) in top
+            for shape, dtype, site in [self._where[key]]]
+
     def _free(self, key: int) -> None:
+        self._take_peak_tensors()
         nbytes, owner = self._live.pop(key, (0, None))
+        self._where.pop(key, None)
         self._live_bytes -= nbytes
         if owner is not None:
             self._by_op[owner] -= nbytes
@@ -280,14 +329,16 @@ class DeviceCounter(TorchDispatchMode):
             seen = {id(t): t for t in _tensors((args, kwargs))}
             moved = sum(t.numel() * t.element_size()
                         for t in (*seen.values(), *outs))
+            site = _call_site()
             for t in outs:
-                self._track(t, str(func))
+                self._track(t, str(func), site)
         c.flops += flops
         c.hbm_bytes += moved
         c.local_ops += 1
         if self._live_bytes > c.peak_bytes:
             c.peak_bytes = self._live_bytes
             c.peak_by_op = {k: v for k, v in self._by_op.items() if v}
+            self._peak_pending = True
         kind = collective_kind(func) or ("dot" if flops else "op")
         row = c.ops.setdefault(str(func), {"kind": kind, "flops": 0,
                                            "bytes": 0, "coll_bytes": 0})
@@ -303,6 +354,7 @@ def count_device(fn: Callable, *args, arguments: Iterable = (),
     DTensor counts its local shard)."""
     with DeviceCounter(arguments) as counter:
         fn(*args, **kwargs)
+    counter._take_peak_tensors()
     return counter.counts
 
 @dataclass

@@ -35,12 +35,12 @@ from typing import Optional
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map, register_sharding
+from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.parallel.sharding import \
     attention_placements as _flash_placements
-from repro_torch.parallel.sharding import local_map_calls
+from repro_torch.parallel.sharding import local_map_calls, map_local
 
 from . import ref
 from .flash_attention import _check as _cuda_contract
@@ -108,12 +108,9 @@ class _FlashAttention(torch.autograd.Function):
         lay = ctx.layout = _flash_placements(q, k)
         local_map_calls["flash_attention forward"] += 1
         # one output: its placements as a list (a tuple means one a value)
-        return local_map(_flash_local, out_placements=list(lay.q),
-                         in_placements=(lay.q, lay.kv, lay.kv, None, None,
-                                        None),
-                         device_mesh=q.device_mesh,
-                         redistribute_inputs=True)(q, k, v, causal, window,
-                                                   lay)
+        return map_local(_flash_local, list(lay.q),
+                         (lay.q, lay.kv, lay.kv, None, None, None),
+                         q.device_mesh)(q, k, v, causal, window, lay)
 
     @staticmethod
     def backward(ctx, g):
@@ -123,12 +120,10 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = _flash_vjp(q, k, v, g, ctx.causal, ctx.window)
         else:
             local_map_calls["flash_attention backward"] += 1
-            vjp = local_map(_flash_vjp_dense,
-                            out_placements=(lay.q, lay.kv_grad, lay.kv_grad),
-                            in_placements=(lay.q, lay.kv, lay.kv, lay.q,
-                                           None, None, None),
-                            device_mesh=q.device_mesh,
-                            redistribute_inputs=True)
+            vjp = map_local(_flash_vjp_dense,
+                            (lay.q, lay.kv_grad, lay.kv_grad),
+                            (lay.q, lay.kv, lay.kv, lay.q, None, None, None),
+                            q.device_mesh)
             dq, dk, dv = vjp(q, k, v, g, ctx.causal, ctx.window, lay)
         return dq, dk, dv, None, None
 

@@ -208,7 +208,7 @@ def extrapolate(a: "fc.DeviceCounts", b: "fc.DeviceCounts",
     and ``S_b`` (``b``): every additive count (FLOPs, op bytes, argument
     and peak bytes and the peak's split by op, local ops, each collective
     kind's wire bytes and count) on the line through the two. The per-op
-    totals and the collective op list are ``b``'s."""
+    totals, the collective op list and the peak's tensors are ``b``'s."""
     def fit(x: int, y: int) -> int:
         return x + (y - x) * k
 
@@ -268,6 +268,8 @@ def record_fields(counts: "fc.DeviceCounts", model_flops: float,
             # the peak's bytes by the op that allocated them, largest first
             "peak_by_op": dict(sorted(counts.peak_by_op.items(),
                                       key=lambda kv: -kv[1])[:8]),
+            # the largest live tensors at the peak, with their call sites
+            "peak_tensors": list(counts.peak_tensors),
         },
         "cost": {"flops": float(counts.flops),
                  "bytes accessed": float(counts.hbm_bytes),

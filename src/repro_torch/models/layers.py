@@ -24,13 +24,13 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.device import require_device
 from repro_torch.parallel.sharding import (attention_placements, constant_like,
                                            einsum, gather_like,
-                                           local_map_calls, role_size,
-                                           shard, shard_over, write_slot)
+                                           local_map_calls, map_local,
+                                           role_size, shard, shard_over,
+                                           write_slot)
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -252,11 +252,9 @@ def _attention_on_shards(fn, q, k, v, mask=None):
                   lay.q_offset).contiguous()
 
     local_map_calls["attention"] += 1
-    return local_map(
-        local, out_placements=list(lay.q),
-        in_placements=(lay.q, lay.kv, lay.kv, mask_pl),
-        in_grad_placements=(lay.q, lay.kv_grad, lay.kv_grad, mask_pl),
-        device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v, mask)
+    return map_local(local, list(lay.q), (lay.q, lay.kv, lay.kv, mask_pl),
+                     q.device_mesh, (lay.q, lay.kv_grad, lay.kv_grad,
+                                     mask_pl))(q, k, v, mask)
 
 
 def chunked_attention(q, k, v, cfg: ModelConfig, causal: bool = True,

@@ -36,13 +36,13 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import require_device
 from repro_torch.parallel.sharding import (constant_like, einsum,
-                                           local_map_calls, reduce_partials,
-                                           replicate_dim, shard)
+                                           local_map_calls, map_local,
+                                           reduce_partials, replicate_dim,
+                                           shard)
 from repro_torch.tree import leaves, tree_map
 from . import recurrent as rec
 from .config import ModelConfig
@@ -358,6 +358,54 @@ def _get_encoder_states(params: Params, batch: Batch,
     return None
 
 
+def _embed_on_shards(tokens: DTensor, table: DTensor) -> DTensor:
+    """``F.embedding(tokens, table)`` with each rank on its own rows of the
+    ids and its vocab shard of the table, as the reference's ``jnp.take``
+    on batch-sharded ids: ``tokens`` keep their shards and are whole on the
+    other mesh dims; the table keeps its vocab (dim 0) shards where the ids
+    are whole and is gathered on every other mesh dim (its fsdp dim: the
+    FSDP weight all-gather). A rank's vocab shard starts at its index over
+    the mesh dims that split the vocab times the shard's rows; it zeroes the
+    ids outside it, so the output is a partial sum over those mesh dims, and
+    the table's gradient one over the mesh dims that split the ids. DTensor's
+    own embedding over a sharded table masks with the ids as given, so they
+    would come whole, with the global batch's rows, to every rank."""
+    mesh = table.device_mesh
+    whole = Replicate()
+    ids_pl, table_pl, grad_pl, out_pl = [], [], [], []
+    split, index = 1, 0
+    for size, coord, p, q in zip(mesh.shape, mesh.get_coordinate(),
+                                 tokens.placements, table.placements):
+        if type(p) is Shard:
+            ids_pl.append(p)
+            table_pl.append(whole)
+            grad_pl.append(Partial())
+            out_pl.append(p)
+        elif q == Shard(0):
+            ids_pl.append(whole)
+            table_pl.append(q)
+            grad_pl.append(q)
+            out_pl.append(Partial())
+            split, index = split * size, index * size + coord
+        else:
+            ids_pl.append(whole)
+            table_pl.append(whole)
+            grad_pl.append(whole)
+            out_pl.append(whole)
+
+    def local(ids, w):
+        if split == 1:
+            return F.embedding(ids, w)
+        at = ids - index * w.shape[0]
+        away = (at < 0) | (at >= w.shape[0])
+        return F.embedding(at.masked_fill(away, 0), w).masked_fill_(
+            away[..., None], 0)
+
+    local_map_calls["embedding"] += 1
+    return map_local(local, out_pl, (tuple(ids_pl), tuple(table_pl)), mesh,
+                     (tuple(ids_pl), tuple(grad_pl)))(tokens, table)
+
+
 def forward(params: Params, batch: Batch,
             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     tokens = batch["tokens"]
@@ -365,10 +413,14 @@ def forward(params: Params, batch: Batch,
     dt = dtype_of(cfg.dtype)
     # ``embedding``, not indexing: DTensor (torch 2.11) cannot propagate the
     # index backward over a sharded table; the forward is the same gather.
-    # Over a sharded table DTensor masks with the ids as given, so they come
-    # whole to every rank, and the masked sum is reduced at once
-    ids = replicate_dim(tokens, 0)
-    x = reduce_partials(F.embedding(ids, params["embed"])).to(dt)
+    # Over a mesh each rank looks up its own rows in its vocab shard, plain
+    # torch under ``local_map`` (``_embed_on_shards``), and the masked
+    # partial sum is reduced at once
+    if isinstance(tokens, DTensor) and isinstance(params["embed"], DTensor):
+        x = _embed_on_shards(tokens, params["embed"])
+    else:
+        x = F.embedding(tokens, params["embed"])
+    x = reduce_partials(x).to(dt)
     x = x * _weak(math.sqrt(cfg.d_model), dt)   # scaled in the model dtype
     if cfg.encoder_layers:
         x = x + params["pos_embed"][None, :s].to(dt)
@@ -457,15 +509,12 @@ def _label_logit_on_shards(logits: DTensor, labels) -> DTensor:
         return (x * (y[..., None].long() == v)).sum(-1, keepdim=True)
 
     local_map_calls["label logit"] += 1
-    return local_map(
-        local, out_placements=[Partial() if p == vocab_dim else p
-                               for p in placements],
-        in_placements=(placements,
-                       [Replicate() if p == vocab_dim else p
-                        for p in placements],
-                       [Shard(0) if p == vocab_dim else Replicate()
-                        for p in placements]),
-        device_mesh=mesh, redistribute_inputs=True)(logits, labels, ids)
+    return map_local(
+        local, [Partial() if p == vocab_dim else p for p in placements],
+        (tuple(placements),
+         tuple(Replicate() if p == vocab_dim else p for p in placements),
+         tuple(Shard(0) if p == vocab_dim else Replicate()
+               for p in placements)), mesh)(logits, labels, ids)
 
 
 def loss_fn(params: Params, batch: Batch,

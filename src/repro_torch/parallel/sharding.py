@@ -18,7 +18,10 @@ A sharding is a :class:`NamedSharding`: the mesh, the reference's spec (a
 tuple per tensor dim of mesh-axis names, or ``None``) and the DTensor
 placements derived from it. ``shard`` redistributes a DTensor to its name's
 placements and passes a plain tensor through; ``distribute`` is the port's
-``jax.device_put`` over a tree.
+``jax.device_put`` over a tree. Every move of a DTensor, a ``local_map``
+region's inputs included (``map_local``), goes through ``redistribute``,
+which slices before it gathers, as XLA's partitioner does, so that no rank
+builds a tensor larger than the move's ends.
 """
 from __future__ import annotations
 
@@ -208,6 +211,189 @@ def _divides(shape, spec: Spec, mesh: DeviceMesh) -> bool:
                for dim, part in zip(shape, spec))
 
 
+# ---------------------------------------------------------------------------
+# Ordered redistribution
+# ---------------------------------------------------------------------------
+
+
+def _clean(cur: List[Placement], m: int, new: Placement,
+           mesh_shape) -> bool:
+    """Whether mesh dim ``m`` can go from ``cur[m]`` to ``new`` in one
+    collective (or none): every tensor dim that the two shard is sharded on
+    no later mesh dim of more than one rank. Shards of one tensor dim nest
+    in mesh-dim order, so the innermost alone can be cut, gathered or
+    swapped without moving the others' data."""
+    dims = {p.dim for p in (cur[m], new) if type(p) is Shard}
+    return not any(type(p) is Shard and p.dim in dims and n > 1
+                   for p, n in zip(cur[m + 1:], mesh_shape[m + 1:]))
+
+
+def _rank(p: Placement, q: Placement) -> int:
+    """The order of a one-dim move ``p -> q``: slices (no communication),
+    then pending sums (a reduce-scatter or an all-reduce), all-to-alls
+    (size kept), gathers (size grows); anything else last."""
+    if isinstance(p, Replicate) and type(q) is Shard:
+        return 0
+    if p.is_partial():
+        return 1
+    if type(p) is Shard:
+        return 2 if type(q) is Shard else 3
+    return 4
+
+
+def _to_dim0(cur: List[Placement], m: int, shape, mesh_shape) -> bool:
+    """Whether mesh dim ``m``'s shard of a dim other than 0 can move to dim
+    0 in one all-to-all (a later gather there then needs no ``cat``, which
+    on any other dim doubles the gathered bytes)."""
+    if cur[m] == Shard(0) or not _clean(cur, m, Shard(0), mesh_shape):
+        return False
+    rows = shape[0] // math.prod(n for n, p in zip(mesh_shape, cur)
+                                 if p == Shard(0))
+    return rows % mesh_shape[m] == 0
+
+
+def redistribution_plan(src, dst, shape, mesh_shape
+                        ) -> List[Tuple[Placement, ...]]:
+    """The placements after each step of :func:`redistribute` from ``src``
+    to ``dst`` for a tensor of global ``shape`` on a mesh of ``mesh_shape``,
+    one mesh dim a step: first every ``Replicate -> Shard`` (a local slice,
+    outer mesh dims first), then each pending ``Partial`` (a reduce-scatter
+    where ``dst`` shards, else an all-reduce, on the tensor already cut),
+    then ``Shard(i) -> Shard(j)`` all-to-alls, then ``Shard -> Replicate``
+    gathers (inner mesh dims first; a shard of a dim other than 0 first
+    moves to dim 0 where it can, :func:`_to_dim0`). A step is taken only
+    where it is one collective (:func:`_clean`), so no step's output is
+    larger than the larger of the two ends' local shards.
+
+    Where every move left is blocked by a later mesh dim sharding the same
+    tensor dim (``(S0, S1) -> (S1, S0)``, ``(R, S0) -> (S0, S0)``), that
+    mesh dim's shard first moves to a tensor dim that neither end shards
+    and that it divides (an all-to-all), and back once the move is done.
+    With no such dim the first move left runs as DTensor's own move of that
+    one mesh dim, which gathers the shards nested inside it and cuts them
+    again: DTensor's mesh order cannot be kept otherwise."""
+    cur, dst = list(src), list(dst)
+    sharded = {p.dim for p in cur + dst if type(p) is Shard}
+    parked = set()      # mesh dims moved to a spare dim: they move last
+    steps: List[Tuple[Placement, ...]] = []
+    # a mesh dim of one rank moves no data: all such at once, first
+    ones = [m for m, n in enumerate(mesh_shape) if n == 1 and cur[m] != dst[m]]
+    if ones:
+        for m in ones:
+            cur[m] = dst[m]
+        steps.append(tuple(cur))
+    for _ in range(4 * len(cur)):
+        pending = [m for m in range(len(cur)) if cur[m] != dst[m]]
+        if not pending:
+            return steps
+        pending = [m for m in pending if m not in parked] or pending
+        # gathers innermost first, every other move outermost first
+        moves = sorted((r, -m if r == 3 else m, m) for m in pending
+                       for r in [_rank(cur[m], dst[m])])
+        clean = [(r, m) for r, _, m in moves
+                 if _clean(cur, m, dst[m], mesh_shape)]
+        first = moves[0][2]
+        # the first move if it is clean, else a clean one that does not grow
+        take = ([first] if clean and clean[0][1] == first
+                else [m for r, m in clean if r <= 2])
+        if take:
+            m = take[0]
+            if _rank(cur[m], dst[m]) == 3 and _to_dim0(cur, m, shape,
+                                                       mesh_shape):
+                # a gather on dim 0 needs no ``cat``: swap the shard there
+                cur[m] = Shard(0)
+            else:
+                cur[m] = dst[m]
+        else:
+            dims = {p.dim for p in (cur[first], dst[first])
+                    if type(p) is Shard}
+            inner = max(i for i in range(first + 1, len(cur))
+                        if type(cur[i]) is Shard and cur[i].dim in dims)
+            spare = [d for d in range(len(shape)) if d not in sharded
+                     and shape[d] % mesh_shape[inner] == 0]
+            if spare:
+                sharded.add(spare[0])
+                parked.add(inner)
+                cur[inner] = Shard(spare[0])
+            else:
+                m = clean[0][1] if clean else first
+                cur[m] = dst[m]
+        steps.append(tuple(cur))
+    if cur != dst:          # no progress in the steps' bound: one call
+        steps.append(tuple(dst))
+    return steps
+
+
+def _plain(placements) -> bool:
+    return all(type(p) in (Shard, Replicate) or isinstance(p, Partial)
+               for p in placements)
+
+
+def _move(x: DTensor, placements: Tuple[Placement, ...]) -> DTensor:
+    """``x`` moved to ``placements`` through :func:`redistribution_plan`'s
+    steps, each a DTensor ``redistribute`` of one mesh dim. Placements that
+    the plan does not know (a strided shard) move in one call."""
+    placements = tuple(placements)
+    if not (_plain(x.placements) and _plain(placements)):
+        return x.redistribute(x.device_mesh, placements)
+    steps = redistribution_plan(x.placements, placements, x.shape,
+                                x.device_mesh.shape)
+    for step in steps or [placements]:      # none: a new DTensor, as is
+        x = x.redistribute(x.device_mesh, step)
+    return x
+
+
+class _Redistribute(torch.autograd.Function):
+    """:func:`_move` forward, and :func:`_move` of the gradient back to the
+    input's placements, a pending sum there given back replicated as
+    DTensor's own ``redistribute`` gives it: the backward takes the same
+    ordered steps from whatever placements the gradient arrives in."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.src = x.placements
+        return _move(x, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        want = tuple(Replicate() if p.is_partial() and not q.is_partial()
+                     else p for p, q in zip(ctx.src, g.placements))
+        return _move(g, want), None
+
+
+def redistribute(x, placements):
+    """A DTensor ``x`` moved to ``placements`` so that no rank builds a
+    tensor larger than the larger of its input's and its output's local
+    shards, in the forward and in the backward (:func:`redistribution_plan`;
+    DTensor's one call gathers before it slices: an all-gather over one
+    mesh dim of a tensor that another then cuts). Gathers and slices are
+    exact and each pending sum is reduced over the same ranks, so the
+    result is the one call's. As DTensor's own, a move to the placements
+    ``x`` has still reduces a gradient that arrives as a pending sum where
+    ``x`` has none (``shard`` of a residual already so laid out). Anything
+    else passes through."""
+    if not isinstance(x, DTensor):
+        return x
+    return _Redistribute.apply(x, tuple(placements))
+
+
+def map_local(fn, out_placements, in_placements, mesh: DeviceMesh,
+              in_grad_placements=None):
+    """``local_map(fn, ...)`` whose DTensor inputs are first moved to their
+    ``in_placements`` through :func:`redistribute`, so that ``local_map``
+    moves nothing itself."""
+    mapped = local_map(fn, out_placements=out_placements,
+                       in_placements=in_placements,
+                       in_grad_placements=in_grad_placements,
+                       device_mesh=mesh, redistribute_inputs=False)
+
+    def run(*args):
+        return mapped(*(a if p is None or not isinstance(a, DTensor)
+                        or a.placements == tuple(p) else redistribute(a, p)
+                        for a, p in zip(args, in_placements)))
+    return run
+
+
 def shard(x, name: str):
     """Annotate activation ``x`` with the logical sharding ``name``: a
     DTensor is redistributed to it, a plain tensor passes through. The
@@ -219,7 +405,7 @@ def shard(x, name: str):
     spec = _spec_for(name, x.ndim, mc)
     if spec is None or not _divides(x.shape, spec, mc.mesh):
         return x
-    return x.redistribute(mc.mesh, _placements(mc.mesh, spec))
+    return redistribute(x, _placements(mc.mesh, spec))
 
 
 def shard_over(x, dim: int, role: str):
@@ -239,7 +425,7 @@ def shard_over(x, dim: int, role: str):
         if not isinstance(placements[i], Replicate):
             return x
         placements[i] = Shard(dim)
-    return x.redistribute(mc.mesh, placements)
+    return redistribute(x, placements)
 
 
 def constant_like(t: torch.Tensor, ref):
@@ -268,7 +454,7 @@ def gather_like(y, x, dim: int):
             for p, px in zip(y.placements, x.placements)]
     if want == list(y.placements):
         return y
-    return y.redistribute(y.device_mesh, want)
+    return redistribute(y, want)
 
 
 def reduce_partials(x):
@@ -280,8 +466,8 @@ def reduce_partials(x):
     if not isinstance(x, DTensor) or not any(p.is_partial()
                                              for p in x.placements):
         return x
-    return x.redistribute(x.device_mesh, [
-        Replicate() if p.is_partial() else p for p in x.placements])
+    return redistribute(x, [Replicate() if p.is_partial() else p
+                            for p in x.placements])
 
 
 def replicate_dim(x, dim: int):
@@ -292,8 +478,8 @@ def replicate_dim(x, dim: int):
     parameters does."""
     if not isinstance(x, DTensor) or Shard(dim) not in x.placements:
         return x
-    return x.redistribute(x.device_mesh, [
-        Replicate() if p == Shard(dim) else p for p in x.placements])
+    return redistribute(x, [Replicate() if p == Shard(dim) else p
+                            for p in x.placements])
 
 
 def write_slot(cache: torch.Tensor, dim: int, index: torch.Tensor,
@@ -307,8 +493,8 @@ def write_slot(cache: torch.Tensor, dim: int, index: torch.Tensor,
     if not isinstance(cache, DTensor) or Shard(dim) not in cache.placements:
         return cache.index_copy_(dim, index, row)
     mesh, placements = cache.device_mesh, cache.placements
-    row = row.redistribute(mesh, [Replicate() if p == Shard(dim) else p
-                                  for p in placements]).to_local()
+    row = redistribute(row, [Replicate() if p == Shard(dim) else p
+                             for p in placements]).to_local()
     index = index.full_tensor() if isinstance(index, DTensor) else index
     local = cache.to_local()
     n, offset = local.shape[dim], 0
@@ -427,9 +613,8 @@ def on_group_shards(fn, x: DTensor, n_out: int):
         split *= size if keep else 1
         placements.append(Shard(0) if keep else Replicate())
     local_map_calls["group shards"] += 1
-    return local_map(fn, out_placements=(placements,) * n_out,
-                     in_placements=(placements,),
-                     device_mesh=x.device_mesh, redistribute_inputs=True)
+    return map_local(fn, (placements,) * n_out, (placements,),
+                     x.device_mesh)
 
 
 def _letters(eq: str, ndims) -> Tuple[List[str], str]:
@@ -485,10 +670,8 @@ def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
         return torch.einsum(eq, *xs).contiguous()
 
     local_map_calls["einsum"] += 1
-    return local_map(local, out_placements=out_pl,
-                     in_placements=[tuple(p) for p in in_pl],
-                     in_grad_placements=[tuple(p) for p in grad_pl],
-                     device_mesh=mesh, redistribute_inputs=True)(*operands)
+    return map_local(local, out_pl, [tuple(p) for p in in_pl], mesh,
+                     [tuple(p) for p in grad_pl])(*operands)
 
 
 # ---------------------------------------------------------------------------
