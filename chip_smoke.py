@@ -234,7 +234,14 @@ for each source, all started together), then
           bytes under half, llama-3.2-vision-90b's at most 115 GiB; and
           xlstm-350m ``train_4k`` on 16 x 16, whose sLSTM / mLSTM time loop
           is traced at S = 16 and 32 and extrapolated to 4096 (its record's
-          ``extrapolated`` key printed);
+          ``extrapolated`` key printed); and the ``decode_32k`` cells of
+          phi4-mini-3.8b, deepseek-moe-16b, llama-3.2-vision-90b,
+          recurrentgemma-2b and whisper-small, each decode cell beside the
+          reference's counts and the port's before the cache was attended
+          where it lies (``REFERENCE_DECODE``, ``DECODE_BEFORE``): bytes at
+          most the reference's, wire bytes at most 1.5x, FLOPs within 10%
+          (phi4-mini 2%, gemma-7b equal at 4 digits), and gemma-7b's
+          all-to-all under 1e8 and all-gather under 1.5e9 wire bytes;
  14. the paper's PS-cluster pipeline (``core/predictor.py``, the cluster
      emulator, the DES; host Python, no tensor work) on the card machine's
      own Python and torch, its times host seconds:
@@ -502,7 +509,15 @@ DRYRUN_CELLS = [        # 13b: (arch, shape, multi_pod)
     # 24 heads over model's 16: q over the sequence, as arctic-480b's 56
     ("phi4-mini-3.8b", "train_4k", False),
     # the sLSTM / mLSTM time loop: traced at S = 16 and 32, extrapolated
-    (XLSTM, "train_4k", False)]
+    (XLSTM, "train_4k", False),
+    # decode over a cache sharded over its sequence on model: heads that
+    # do not divide model (phi4, whisper), kv heads that do not (llama),
+    # a routed MoE (deepseek), a window's ring and the RG-LRU (recurrentgemma)
+    ("phi4-mini-3.8b", "decode_32k", False),
+    ("deepseek-moe-16b", "decode_32k", False),
+    ("llama-3.2-vision-90b", "decode_32k", False),
+    ("recurrentgemma-2b", "decode_32k", False),
+    ("whisper-small", "decode_32k", False)]
 # 13b: the cells' bytes (GiB) and FLOPs a device before the sharded step
 # stopped building whole global tensors on each rank (the card's counts with
 # the reference's attention layout, unchanged over several runs). FLOPs
@@ -523,6 +538,32 @@ DRYRUN_LIMIT_GIB = {"arctic-480b": 70.0, "llama-3.2-vision-90b": 115.0}
 CARD_GIB = 74.5         # 80 GB
 DRYRUN_WIRE_BEFORE = {"arctic-480b": 1.846e12 + 1.296e12}
 REFERENCE_GIB = {"arctic-480b": 57.86}
+# 13b decode: the reference's ``decode_32k`` counts a device on 16 x 16 (XLA's
+# compile for 256 host devices, the mesh's axes ``AxisType.Auto``): GiB,
+# FLOPs, collective wire bytes. Each decode cell holds its bytes at most the
+# reference's, its wire bytes at most ``DECODE_WIRE_LIMIT`` times, and its
+# FLOPs within ``DECODE_FLOP_RTOL`` (gemma-7b: equal at 4 digits).
+REFERENCE_DECODE = {"gemma-7b": (25.99, 1.6054e10, 1.498e9),
+                    "phi4-mini-3.8b": (7.54, 1.4809e10, 7.453e8),
+                    "deepseek-moe-16b": (12.91, 6.9075e9, 2.908e8),
+                    "llama-3.2-vision-90b": (26.47, 1.2976e11, 1.351e10),
+                    "recurrentgemma-2b": (0.76, 3.7644e9, 4.423e8),
+                    "whisper-small": (3.49, 1.3979e9, 3.789e7)}
+DECODE_WIRE_LIMIT = 1.5
+DECODE_FLOP_RTOL = {"gemma-7b": 0.0, "phi4-mini-3.8b": 0.02}   # else 0.10
+# ... and the port's counts before its decode attended over the cache where
+# it lies: gemma-7b's on the card (all-gather and all-to-all wire bytes
+# beside bytes and FLOPs), the others' on the CPU route (torch 2.13, whose
+# embedding also dropped the batch shard): GiB, FLOPs, wire bytes
+DECODE_BEFORE = {"gemma-7b": (13.78, 1.6054e10, 4.137e9 + 7.046e9),
+                 "phi4-mini-3.8b": (26.99, 1.6576e12, 5.482e11),
+                 "deepseek-moe-16b": (6.85, 6.4050e10, 1.129e11),
+                 "llama-3.2-vision-90b": (29.25, 7.8187e11, 1.388e12),
+                 "recurrentgemma-2b": (0.78, 2.5155e10, 2.430e9),
+                 "whisper-small": (19.39, 1.6247e11, 1.608e11)}
+# gemma-7b decode's all-to-all (each layer's cache to heads, 7.046e9) and
+# all-gather (4.137e9, 2.93 GiB of it the fp32 embedding table) must fall
+DECODE_GEMMA_WIRE = {"all-to-all": 1e8, "all-gather": 1.5e9}
 COMM_KINDS = (("all_gather", "all-gather"), ("reduce_scatter",
               "reduce-scatter"), ("all_reduce", "all-reduce"),
               ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"))
@@ -2725,7 +2766,8 @@ def dryrun_phase(gemma: dict, real: dict) -> None:
 
 def production_cells_phase() -> None:
     """Phase 13b: ``DRYRUN_CELLS`` through ``dryrun_cell`` on fake ``cuda``
-    tensors, each beside its counts in ``DRYRUN_BEFORE``."""
+    tensors, each beside its counts in ``DRYRUN_BEFORE``, each decode cell
+    beside the reference's (``decode_row``)."""
     from repro_torch.launch.dryrun import dryrun_cell
     for arch, shape, multi_pod in DRYRUN_CELLS:
         rec = dryrun_cell(arch, shape, multi_pod=multi_pod, verbose=False)
@@ -2764,6 +2806,8 @@ def production_cells_phase() -> None:
                           f"{t['site'] or 'the step'}"
                           for t in rec["memory"]["peak_tensors"]),
               flush=True)
+        if shape == "decode_32k":
+            decode_row(head, arch, rec)
         before = DRYRUN_BEFORE.get((arch, shape, multi_pod))
         if before is None:
             continue
@@ -2788,6 +2832,37 @@ def production_cells_phase() -> None:
                   f"before", flush=True)
             require(wire < DRYRUN_WIRE_BEFORE[arch] / 2,
                     f"{head}: the gather and scatter bytes did not halve")
+
+
+def decode_row(head: str, arch: str, rec: dict) -> None:
+    """13b: a ``decode_32k`` cell beside the reference's counts and the
+    port's before (``REFERENCE_DECODE``, ``DECODE_BEFORE``), gated on the
+    reference's."""
+    gib = rec["memory"]["total_bytes_per_device"] / 2**30
+    flops = rec["cost"]["flops"]
+    coll = rec["collectives"]["bytes_by_kind"]
+    wire = rec["collectives"]["total_wire_bytes"]
+    ref, before = REFERENCE_DECODE[arch], DECODE_BEFORE[arch]
+    rtol = DECODE_FLOP_RTOL.get(arch, 0.10)
+    print(f"{head}: {gib:.2f} GiB, {flops:.4e} FLOPs, {wire:.4e} wire bytes "
+          f"a device; the reference's {ref[0]:.2f} GiB, {ref[1]:.4e}, "
+          f"{ref[2]:.4e} (FLOPs ratio {flops / ref[1]:.4f}, wire ratio "
+          f"{wire / ref[2]:.3f}); the port's before {before[0]:.2f} GiB, "
+          f"{before[1]:.4e}, {before[2]:.4e}", flush=True)
+    if rtol:
+        require(abs(flops / ref[1] - 1) <= rtol,
+                f"{head}: FLOPs over {rtol:.0%} off the reference's")
+    else:
+        require(f"{flops:.4e}" == f"{ref[1]:.4e}",
+                f"{head}: FLOPs not the reference's")
+    require(round(gib, 2) <= ref[0], f"{head}: bytes above the reference's")
+    require(wire <= DECODE_WIRE_LIMIT * ref[2],
+            f"{head}: wire bytes over {DECODE_WIRE_LIMIT}x the reference's")
+    if arch == "gemma-7b":
+        for kind, limit in DECODE_GEMMA_WIRE.items():
+            require(coll.get(kind, 0) < limit,
+                    f"{head}: {kind} wire bytes {coll.get(kind, 0):.4e} not "
+                    f"under {limit:.1e}")
 
 
 def paper_phase(card: str) -> None:

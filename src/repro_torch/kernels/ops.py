@@ -30,6 +30,8 @@ partial sums wherever q is sharded and they are whole. The gradients come
 back contiguous, since DTensor plans the views that follow from global
 strides, which a permuted local gradient does not have.
 ``local_map_calls`` (the sharding layer's) counts each region's runs.
+k and v sharded over their sequence where q is not (the decode cache's
+layout) raise here: only the plain core combines partial softmaxes.
 """
 from typing import Optional
 

@@ -22,6 +22,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -29,6 +30,7 @@ from repro_torch.device import require_device
 from repro_torch.parallel.sharding import (attention_placements, constant_like,
                                            einsum, gather_like,
                                            local_map_calls, map_local,
+                                           redistribute, reduce_partials,
                                            role_size, shard, shard_over,
                                            write_slot)
 from .config import ModelConfig
@@ -173,12 +175,48 @@ def _qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor):
     dt = x.dtype
     if p["wq"].shape[1] % max(role_size("tp"), 1):
         x = shard_over(x, x.ndim - 2, "sp")
-    q = einsum("...sd,dhk->...shk", x, p["wq"].to(dt))
-    k = einsum("...sd,dhk->...shk", kv_src,
-               shard_over(p["wk"].to(dt), 1, "tp"))
-    v = einsum("...sd,dhk->...shk", kv_src,
-               shard_over(p["wv"].to(dt), 1, "tp"))
-    return q, k, v
+    return (project_heads(x, p["wq"].to(dt)),
+            project_heads(kv_src, shard_over(p["wk"].to(dt), 1, "tp")),
+            project_heads(kv_src, shard_over(p["wv"].to(dt), 1, "tp")))
+
+
+def _one_token_whole_heads(x: torch.Tensor, heads: int) -> bool:
+    """Whether ``x`` (B, S, ...) is decode's one token on a mesh whose TP
+    axis ``heads`` do not divide."""
+    return (isinstance(x, DTensor) and x.shape[1] == 1
+            and heads % role_size("tp") > 0)
+
+
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` into heads: (B, S, d) by (d, H, D). For decode's one token
+    where the heads do not divide the TP axis, the weight stays where it
+    lies, as XLA leaves it: x's batch shards move to d wherever w holds its
+    FSDP shard of d (an all-to-all of the tokens), x and w are cut to d's
+    slices on TP, each rank sums its slice of d for the whole batch, and
+    the sums are scattered back to the batch's shards."""
+    if not _one_token_whole_heads(x, w.shape[1]):
+        return einsum("...sd,dhk->...shk", x, w)
+    x = reduce_partials(x)
+    batch = x.placements
+    d = x.ndim - 1
+    x = redistribute(x, [Shard(d) if pw == Shard(0) else px
+                         for px, pw in zip(batch, w.placements)])
+    x, w = shard_over(x, d, "tp"), shard_over(w, 0, "tp")
+    return redistribute(einsum("...sd,dhk->...shk", x, w), batch)
+
+
+def project_out(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``out @ w`` from heads: (B, S, H, D) by (H, D, d). For decode's one
+    token where the heads do not divide the TP axis, the weight keeps its
+    FSDP shard of d and the tokens come to it, as XLA moves them: ``out``
+    is gathered over the batch wherever w holds its shard of d, each rank
+    computes its slice of d for those tokens, and the result goes back to
+    the batch's shards (an all-to-all of a token's width)."""
+    if not _one_token_whole_heads(out, w.shape[0]):
+        return einsum("...shk,hkd->...sd", out, w)
+    out = redistribute(out, [Replicate() if pw == Shard(2) else po
+                             for po, pw in zip(out.placements, w.placements)])
+    return shard(einsum("...shk,hkd->...sd", out, w), "act_btd")
 
 
 def _shard_q(q: torch.Tensor) -> torch.Tensor:
@@ -208,11 +246,21 @@ def mha_logits_to_out(q, k, v, mask, cfg: Optional[ModelConfig],
         mask = None if mask is None else constant_like(mask, q)
         return _attention_on_shards(
             lambda q, k, v, m, _: mha_logits_to_out(q, k, v, m, cfg, softcap),
-            q, k, v, mask)
+            q, k, v, mask,
+            lambda q, k, v, m: softmax_partials(q, k, v, m, cfg, softcap))
+    logits = _masked_logits(q, k, mask, cfg, softcap)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(q.shape)
+
+
+def _masked_logits(q, k, mask, cfg: Optional[ModelConfig],
+                   softcap: float) -> torch.Tensor:
+    """The core's scores (B, Kv, G, S, T) in ``cfg.scores_dtype``: scaled,
+    capped where ``softcap > 0``, ``finfo.min / 2`` where masked."""
     b, s, h, d = q.shape
-    t, kvh = k.shape[1], k.shape[2]
-    g = h // kvh
-    qg = q.reshape(b, s, kvh, g, d)
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, d)
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k) / _weak(math.sqrt(d),
                                                                q.dtype)
     score_dt = dtype_of(cfg.scores_dtype) if cfg is not None \
@@ -227,12 +275,39 @@ def mha_logits_to_out(q, k, v, mask, cfg: Optional[ModelConfig],
         neg = torch.tensor(torch.finfo(score_dt).min / 2, dtype=score_dt,
                            device=logits.device)
         logits = torch.where(m, logits, neg)
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", w, v)
-    return out.reshape(b, s, h, d)
+    return logits
 
 
-def _attention_on_shards(fn, q, k, v, mask=None):
+def softmax_partials(q, k, v, mask, cfg: Optional[ModelConfig],
+                     softcap: float = 0.0):
+    """The core's softmax over these keys alone, unnormalised, as
+    flash-decoding splits it: per (B, Kv, G, S) row the max ``m`` of the
+    masked scores, ``l = sum(exp(scores - m))`` and ``acc = exp(scores -
+    m) @ v`` (the weights in q's dtype for the product, as the core rounds
+    them), each in fp32. Where every key is masked, ``m`` is ``finfo.min /
+    2`` and :func:`combine_partials` weighs the row 0."""
+    logits = _masked_logits(q, k, mask, cfg, softcap)
+    m = logits.amax(-1)
+    p = torch.exp(logits - m[..., None])
+    acc = torch.einsum("bkgst,btkd->bkgsd", p.to(q.dtype), v)
+    return m.float(), p.sum(-1).float(), acc.float()
+
+
+def combine_partials(m, l, acc, reduce_max, reduce_sum) -> torch.Tensor:
+    """The softmax's output from partials (``softmax_partials``) of
+    disjoint key sets: ``M = reduce_max(m)``, then ``sum(e^(m - M) acc) /
+    sum(e^(m - M) l)`` with the sums by ``reduce_sum``, in fp32, as (B, S,
+    H, D). A set whose keys are all masked weighs ``e^(m - M) = 0``; M is
+    finite wherever any key of the row is valid."""
+    big = reduce_max(m)
+    w = torch.exp(m - big)
+    both = reduce_sum(torch.cat([acc * w[..., None], (l * w)[..., None]], -1))
+    out = both[..., :-1] / both[..., -1:]
+    b, kvh, g, s, d = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, d)
+
+
+def _attention_on_shards(fn, q, k, v, mask=None, partials=None):
     """``fn(q, k, v, mask, q_offset)`` on DTensors, each rank on its shards
     in the reference's layout (``attention_placements``): q over batch,
     heads or the sequence; k and v over batch and the heads they share with
@@ -241,20 +316,48 @@ def _attention_on_shards(fn, q, k, v, mask=None):
     first query's key position. DTensor cannot split the heads into (Kv, G)
     groups or flatten them with the batch for its ``bmm`` where they are
     sharded. k's and v's gradients are partial sums wherever q is sharded
-    and they are whole."""
-    lay = attention_placements(q, k)
+    and they are whole.
+
+    Where k and v arrive sharded over their sequence and q does not (the
+    decode cache, ``AttentionLayout.kv_seq``), they stay so and each rank
+    runs ``partials(q, k, v, mask)`` (``softmax_partials``) over its keys,
+    the mask cut to them; the partials are combined over those mesh dims'
+    groups by two all-reduces (a max, then one sum of ``acc`` and ``l``).
+    That layout has no backward, and a core without ``partials`` refuses
+    it rather than gather the cache."""
+    lay = attention_placements(q, k, partial_softmax=partials is not None)
     mask_pl = None if mask is None else tuple(
         Shard(2) if p == Shard(1) and mask.shape[2] == q.shape[1]
-        else Replicate() for p in lay.q)
+        else Shard(3) if m in lay.kv_seq else Replicate()
+        for m, p in enumerate(lay.q))
+    mesh = q.device_mesh
+    groups = [mesh.get_group(m) for m in lay.kv_seq]
+    if groups and torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            f"attention with k and v sharded over their sequence on mesh "
+            f"dims {lay.kv_seq} (the decode cache's layout) has no backward")
+
+    def over(op):
+        def reduce(x):
+            for g in groups:
+                x = funcol.all_reduce(x, op, g)
+            return x
+        return reduce
 
     def local(q, k, v, mask):
-        return fn(q, lay.kv_slice(k), lay.kv_slice(v), mask,
-                  lay.q_offset).contiguous()
+        k, v = lay.kv_slice(k), lay.kv_slice(v)
+        if groups:
+            out = combine_partials(*partials(q, k, v, mask), over("max"),
+                                   over("sum")).to(q.dtype)
+        else:
+            out = fn(q, k, v, mask, lay.q_offset)
+        return out.contiguous()
 
     local_map_calls["attention"] += 1
     return map_local(local, list(lay.q), (lay.q, lay.kv, lay.kv, mask_pl),
-                     q.device_mesh, (lay.q, lay.kv_grad, lay.kv_grad,
-                                     mask_pl))(q, k, v, mask)
+                     mesh, (lay.q, lay.kv_grad, lay.kv_grad,
+                            mask_pl))(q, k, v, mask)
 
 
 def chunked_attention(q, k, v, cfg: ModelConfig, causal: bool = True,
@@ -418,5 +521,5 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     ck, cv = shard(cache_k, "kv_cache"), shard(cache_v, "kv_cache")
     out = mha_logits_to_out(q, ck.to(q.dtype), cv.to(q.dtype),
                             valid[None, None, None, :], cfg)
-    y = einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype))
+    y = project_out(out, p["wo"].to(x.dtype))
     return y, cache_k, cache_v

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.parallel.sharding import (constant_like, einsum,
-                                           on_group_shards, shard)
+                                           on_group_shards, shard, shard_over)
 from .config import ModelConfig
 from .layers import Params, apply_mlp, dense_init, init_mlp
 
@@ -147,6 +147,13 @@ def apply_moe(p: Params, x: torch.Tensor,
 
     dt = x.dtype
     spec = "moe_ecd_grouped" if m.dispatch_local else "moe_ecd"
+    if s == 1:
+        # decode's one token a row, its group whole: XLA carries the
+        # experts' TP shards back into the dispatch product and the tokens'
+        # batch shards into the combine, where DTensor would compute every
+        # expert's slots and every token on each rank
+        dispatch = shard_over(dispatch, 2, "tp")
+        combine = shard_over(combine, 1, "batch")
     expert_in = einsum("ngd,ngec->necd", xg, dispatch.to(dt))
     expert_in = shard(expert_in, spec)
     w = p["experts"]

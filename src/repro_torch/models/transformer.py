@@ -41,15 +41,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import require_device
 from repro_torch.parallel.sharding import (constant_like, einsum,
                                            local_map_calls, map_local,
-                                           reduce_partials, replicate_dim,
-                                           shard)
+                                           redistribute, reduce_partials,
+                                           replicate_dim, shard)
 from repro_torch.tree import leaves, tree_map
 from . import recurrent as rec
 from .config import ModelConfig
 from .layers import (Params, _weak, apply_mlp, apply_norm, attention_block,
                      cross_attention_block, decode_attention, dense_init,
                      dtype_of, embed_init, gate_output, init_attention,
-                     init_kv_cache, init_mlp, init_norm, mha_logits_to_out)
+                     init_kv_cache, init_mlp, init_norm, mha_logits_to_out,
+                     project_heads, project_out)
 from .moe import apply_moe, init_moe
 
 Batch = Dict[str, torch.Tensor]
@@ -369,14 +370,27 @@ def _embed_on_shards(tokens: DTensor, table: DTensor) -> DTensor:
     ids outside it, so the output is a partial sum over those mesh dims, and
     the table's gradient one over the mesh dims that split the ids. DTensor's
     own embedding over a sharded table masks with the ids as given, so they
-    would come whole, with the global batch's rows, to every rank."""
+    would come whole, with the global batch's rows, to every rank.
+
+    For decode's one token a row the ids come to the table instead, as
+    XLA moves them: on a mesh dim that splits the ids and the table's
+    d_model, the ids are gathered, each rank looks up its d_model slice of
+    every row, and the rows go back to the ids' shards (an all-to-all of a
+    token's width)."""
     mesh = table.device_mesh
     whole = Replicate()
+    one = tokens.shape[1] == 1
     ids_pl, table_pl, grad_pl, out_pl = [], [], [], []
+    back = []       # the output's placements back on the ids' shards
     split, index = 1, 0
     for size, coord, p, q in zip(mesh.shape, mesh.get_coordinate(),
                                  tokens.placements, table.placements):
-        if type(p) is Shard:
+        if type(p) is Shard and q == Shard(1) and one:
+            ids_pl.append(whole)
+            table_pl.append(q)
+            grad_pl.append(q)
+            out_pl.append(Shard(tokens.ndim))
+        elif type(p) is Shard:
             ids_pl.append(p)
             table_pl.append(whole)
             grad_pl.append(Partial())
@@ -392,6 +406,7 @@ def _embed_on_shards(tokens: DTensor, table: DTensor) -> DTensor:
             table_pl.append(whole)
             grad_pl.append(whole)
             out_pl.append(whole)
+        back.append(p if type(p) is Shard else out_pl[-1])
 
     def local(ids, w):
         if split == 1:
@@ -402,8 +417,9 @@ def _embed_on_shards(tokens: DTensor, table: DTensor) -> DTensor:
             away[..., None], 0)
 
     local_map_calls["embedding"] += 1
-    return map_local(local, out_pl, (tuple(ids_pl), tuple(table_pl)), mesh,
-                     (tuple(ids_pl), tuple(grad_pl)))(tokens, table)
+    out = map_local(local, out_pl, (tuple(ids_pl), tuple(table_pl)), mesh,
+                    (tuple(ids_pl), tuple(grad_pl)))(tokens, table)
+    return out if back == out_pl else redistribute(out, back)
 
 
 def forward(params: Params, batch: Batch,
@@ -627,11 +643,10 @@ def _step_block(kind: str, p: Params, x: torch.Tensor, st: Params,
         # attention over the cached encoder K/V, no mask
         ap = p["xattn"]
         h = apply_norm(p["norm_x" if kind == "encdec" else "norm1"], x, cfg)
-        q = einsum("...sd,dhk->...shk", h, ap["wq"].to(x.dtype))
+        q = project_heads(h, ap["wq"].to(x.dtype))
         o = mha_logits_to_out(q, st["xk"].to(x.dtype), st["xv"].to(x.dtype),
                               None, cfg)
-        x = x + gate_output(ap, einsum("...shk,hkd->...sd", o,
-                                       ap["wo"].to(x.dtype)))
+        x = x + gate_output(ap, project_out(o, ap["wo"].to(x.dtype)))
     if kind in _RECURRENT:
         y, s2 = getattr(rec, f"step_{kind}")(
             p[kind], apply_norm(p["norm1"], x, cfg), st, cfg)
@@ -654,8 +669,13 @@ def serve_step(params: Params, state: Params, token: torch.Tensor,
     0-d tensor. Nothing is read back to the host."""
     dt = dtype_of(cfg.dtype)
     pos = state["pos"]
-    x = params["embed"][token[:, None]].to(dt)
-    x = x * _weak(math.sqrt(cfg.d_model), dt)
+    # over a mesh each rank looks up its own rows in its vocab shard, as in
+    # ``forward``: indexing a vocab-sharded DTensor gathers the table
+    if isinstance(token, DTensor) and isinstance(params["embed"], DTensor):
+        x = reduce_partials(_embed_on_shards(token[:, None], params["embed"]))
+    else:
+        x = params["embed"][token[:, None]]
+    x = x.to(dt) * _weak(math.sqrt(cfg.d_model), dt)
     if cfg.encoder_layers:
         # the learned position's row, clamped into the table as the
         # reference's dynamic_slice clamps its start

@@ -76,7 +76,8 @@ _ACT_SPECS: Dict[str, Tuple[Optional[str], ...]] = {
     # (B, S, V) logits
     "logits": ("batch", None, "tp"),
     # (B, S, K, D) decode KV cache: batch over data, cache seq over model
-    # (flash-decoding style partial softmax handled by SPMD partitioner)
+    # (each rank attends over its keys, the partial softmaxes combined:
+    # ``AttentionLayout.kv_seq``)
     "kv_cache": ("batch", "tp", None, None),
     # (G, E, C, M) expert dispatch
     "moe_ecd": (None, "tp", None, None),
@@ -521,13 +522,16 @@ class AttentionLayout:
     query, ``(T - S) + index * S_local`` with ``index`` its sequence shard.
     ``kv_heads``: the (start, stop) of the kv heads of its local k, v that
     its q heads read under the global GQA map ``h // (H / Kv)``, or None
-    for all of them."""
+    for all of them. ``kv_seq``: the mesh dims on which k and v keep their
+    sequence shards (the decode cache's), where each rank attends over its
+    own keys and the ranks' partial softmaxes are combined."""
 
     q: Tuple[Placement, ...]
     kv: Tuple[Placement, ...]
     kv_grad: Tuple[Placement, ...]
     q_offset: int
     kv_heads: Optional[Tuple[int, int]] = None
+    kv_seq: Tuple[int, ...] = ()
 
     def kv_slice(self, x: torch.Tensor) -> torch.Tensor:
         """A rank's local k or v (B, T, Kv, D) cut to ``kv_heads``."""
@@ -536,7 +540,8 @@ class AttentionLayout:
         return x[:, :, self.kv_heads[0]:self.kv_heads[1]]
 
 
-def attention_placements(q: DTensor, k: DTensor) -> AttentionLayout:
+def attention_placements(q: DTensor, k: DTensor,
+                         partial_softmax: bool = False) -> AttentionLayout:
     """The reference's attention layout (``_shard_q``, ``_shard_kv``) as XLA
     partitions it, per mesh dim in mesh order, ``split`` the product of the
     sizes already used on a tensor dim:
@@ -547,8 +552,14 @@ def attention_placements(q: DTensor, k: DTensor) -> AttentionLayout:
       keep it too while the split divides Kv, else they are whole there and
       the rank reads the kv heads its q heads map to;
     * sequence: q keeps ``Shard(1)`` while the split divides S and the local
-      length passes the flash kernel's block rule; k and v are whole. S = 1
-      (decode) and an S that does not divide stay replicated.
+      length passes the flash kernel's block rule; k and v are whole. An S
+      that does not divide stays replicated;
+    * the keys' sequence: where k arrives sharded over its sequence and q
+      is not (decode's one-token q over the ``kv_cache``), k and v keep
+      ``Shard(1)`` and q is whole there (``kv_seq``): each rank attends
+      over its own keys, as XLA attends over the cache where it lies.
+      Only a core that combines partial softmaxes can (``partial_softmax``);
+      for any other this raises, rather than gather the keys.
 
     Anything else computes replicated on that dim."""
     from repro_torch.kernels.flash_attention import fits_blocks
@@ -563,7 +574,19 @@ def attention_placements(q: DTensor, k: DTensor) -> AttentionLayout:
     pq: List[Placement] = []
     pkv: List[Placement] = []
     pgrad: List[Placement] = []
+    kv_seq: List[int] = []
     for m, (size, p) in enumerate(zip(mesh.shape, q.placements)):
+        if k.placements[m] == Shard(1) and p != Shard(1):
+            if not partial_softmax:
+                raise NotImplementedError(
+                    f"k and v sharded over their sequence on mesh dim {m} "
+                    "and q not (the decode cache's layout) need the plain "
+                    "core's partial softmax")
+            pq.append(whole)
+            pkv.append(Shard(1))
+            pgrad.append(Shard(1))
+            kv_seq.append(m)
+            continue
         d = p.dim if isinstance(p, Shard) else None
         n = split.get(d, 1) * size
         keep = False
@@ -598,7 +621,8 @@ def attention_placements(q: DTensor, k: DTensor) -> AttentionLayout:
         start = head_index % (split[2] // kv_split) * local // group
         kv_heads = (start, start + max(1, local // group))
     return AttentionLayout(tuple(pq), tuple(pkv), tuple(pgrad),
-                           (t - s) + seq_index * (s // split[1]), kv_heads)
+                           (t - s) + seq_index * (s // split[1]), kv_heads,
+                           tuple(kv_seq))
 
 
 def on_group_shards(fn, x: DTensor, n_out: int):
