@@ -187,36 +187,53 @@ def _one_token_whole_heads(x: torch.Tensor, heads: int) -> bool:
             and heads % role_size("tp") > 0)
 
 
+def split_contraction(eq: str, x: torch.Tensor, w: torch.Tensor,
+                      w_dim: int = 0) -> torch.Tensor:
+    """``einsum(eq, x, w)`` of a DTensor ``x`` (batch on dim 0) whose last
+    dim is contracted against w's dim ``w_dim``, the weight left where it
+    lies, as XLA leaves it for a one-token step: x is cut to the batch's
+    shards, its batch shards move to the contracted dim wherever w holds a
+    shard of it (an all-to-all of the tokens), x and w are cut to its
+    slices on TP, each rank sums its slice for the whole batch, and the
+    sums are scattered back to the batch's shards."""
+    d = x.ndim - 1
+    x = shard_over(reduce_partials(x), 0, "batch")
+    batch = [Replicate() if p == Shard(d) else p for p in x.placements]
+    x = redistribute(x, [Shard(d) if pw == Shard(w_dim) else px
+                         for px, pw in zip(x.placements, w.placements)])
+    x, w = shard_over(x, d, "tp"), shard_over(w, w_dim, "tp")
+    return redistribute(einsum(eq, x, w), batch)
+
+
+def gather_tokens(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, x, w)`` of a DTensor ``x`` (B, S, ...) into w's last
+    dim (B, S, d), the tokens brought to the weight, as XLA moves them for
+    a one-token step: x is gathered over the batch wherever w holds its
+    FSDP shard of d, each rank computes its slice of d for those tokens,
+    and the result goes back to the batch's shards (an all-to-all of a
+    token's width)."""
+    last = Shard(w.ndim - 1)
+    x = redistribute(x, [Replicate() if pw == last else px
+                         for px, pw in zip(x.placements, w.placements)])
+    return shard(einsum(eq, x, w), "act_btd")
+
+
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` into heads: (B, S, d) by (d, H, D). For decode's one token
-    where the heads do not divide the TP axis, the weight stays where it
-    lies, as XLA leaves it: x's batch shards move to d wherever w holds its
-    FSDP shard of d (an all-to-all of the tokens), x and w are cut to d's
-    slices on TP, each rank sums its slice of d for the whole batch, and
-    the sums are scattered back to the batch's shards."""
+    where the heads do not divide the TP axis, the contraction is split
+    where the weight lies (:func:`split_contraction`)."""
     if not _one_token_whole_heads(x, w.shape[1]):
         return einsum("...sd,dhk->...shk", x, w)
-    x = reduce_partials(x)
-    batch = x.placements
-    d = x.ndim - 1
-    x = redistribute(x, [Shard(d) if pw == Shard(0) else px
-                         for px, pw in zip(batch, w.placements)])
-    x, w = shard_over(x, d, "tp"), shard_over(w, 0, "tp")
-    return redistribute(einsum("...sd,dhk->...shk", x, w), batch)
+    return split_contraction("...sd,dhk->...shk", x, w)
 
 
 def project_out(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``out @ w`` from heads: (B, S, H, D) by (H, D, d). For decode's one
-    token where the heads do not divide the TP axis, the weight keeps its
-    FSDP shard of d and the tokens come to it, as XLA moves them: ``out``
-    is gathered over the batch wherever w holds its shard of d, each rank
-    computes its slice of d for those tokens, and the result goes back to
-    the batch's shards (an all-to-all of a token's width)."""
+    token where the heads do not divide the TP axis, the tokens come to
+    the weight's FSDP shard of d (:func:`gather_tokens`)."""
     if not _one_token_whole_heads(out, w.shape[0]):
         return einsum("...shk,hkd->...sd", out, w)
-    out = redistribute(out, [Replicate() if pw == Shard(2) else po
-                             for po, pw in zip(out.placements, w.placements)])
-    return shard(einsum("...shk,hkd->...sd", out, w), "act_btd")
+    return gather_tokens("...shk,hkd->...sd", out, w)
 
 
 def _shard_q(q: torch.Tensor) -> torch.Tensor:

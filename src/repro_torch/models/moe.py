@@ -21,6 +21,11 @@ Two steps compute what the reference computes in another way:
     nonzero at each (token, expert, slot) and that sum is exact;
     :func:`assign_slots` scatters straight into (n, g, E, C), bit-equal and
     k times smaller.
+
+On a mesh each rank builds the slots of its own experts alone
+(:func:`expert_slots`), as XLA partitions the reference's one-hot tensors
+over the experts' TP shards, so that the dispatch and combine products and
+their gradients run on the rank's experts at every length.
 """
 from __future__ import annotations
 
@@ -30,10 +35,12 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.parallel.sharding import (constant_like, einsum,
-                                           on_group_shards, shard, shard_over)
+from repro_torch.parallel.sharding import (constant_like, current_mesh,
+                                           einsum, local_map_calls, map_local,
+                                           on_group_shards, replicate_dim,
+                                           shard, shard_over)
 from .config import ModelConfig
 from .layers import Params, apply_mlp, dense_init, init_mlp
 
@@ -86,31 +93,74 @@ def assign_slots(gate_idx: torch.Tensor, gate_vals: torch.Tensor,
     gate_idx, gate_vals: (n, g, k). An assignment whose slot is ``cap`` or
     more is dropped: it has no slot, and both tensors are 0 for it.
     """
+    return expert_slots(gate_idx, gate_vals, cap, 0, num_experts)
+
+
+def expert_slots(gate_idx: torch.Tensor, gate_vals: torch.Tensor, cap: int,
+                 first: int, count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`assign_slots` of experts ``first`` to ``first + count`` only:
+    ``(dispatch, combine)``, each (n, g, count, C). An expert's slots count
+    its own assignments alone, so the others' need not be seen; an
+    assignment to an expert out of the range has no slot here."""
     n, g, k = gate_idx.shape
-    experts = torch.arange(num_experts, device=gate_idx.device)
-    # one-hot expert of each (k, token), k-major: (n, k * g, E)
-    assign = (gate_idx.transpose(1, 2).reshape(n, k * g, 1)
+    rel = gate_idx - first
+    experts = torch.arange(count, device=gate_idx.device)
+    # one-hot expert of each (k, token), k-major: (n, k * g, count)
+    assign = (rel.transpose(1, 2).reshape(n, k * g, 1)
               == experts).float()
-    # each assignment's slot in its expert's buffer, back to (n, g, k)
+    # each assignment's slot in its expert's buffer, back to (n, g, k);
+    # -1 for an expert out of the range
     slot = (torch.cumsum(assign, dim=1) * assign).sum(-1) - 1.0
     slot = slot.reshape(n, k, g).transpose(1, 2)
-    keep = slot < cap
-    flat = gate_idx * cap + torch.where(keep, slot, 0.0).long()
-    zeros = gate_vals.new_zeros((n, g, num_experts * cap))
-    dispatch = zeros.scatter(2, flat, keep.float())
-    combine = zeros.scatter(2, flat, gate_vals * keep)
-    shape = (n, g, num_experts, cap)
+    keep = (slot >= 0) & (slot < cap)
+    # one nonzero at most a (token, slot): summing into zeros is exact, and
+    # an assignment without a slot adds its 0 anywhere in its row
+    flat = torch.where(keep, rel * cap + slot.long(), 0)
+    zeros = gate_vals.new_zeros((n, g, count * cap))
+    dispatch = zeros.scatter_add(2, flat, keep.float())
+    combine = zeros.scatter_add(2, flat, gate_vals * keep)
+    shape = (n, g, count, cap)
     return dispatch.view(shape), combine.view(shape)
 
 
-def _route(probs: torch.Tensor, k: int, num_experts: int, cap: int):
-    """(gate_vals, gate_idx, dispatch, combine) of router probabilities
-    (n, g, E): the top-k, its normalised gates, and their slots."""
-    gate_vals, gate_idx = top_k(probs, k)                    # (n, g, k)
+def _slots_on_expert_shards(gate_idx, gate_vals, num_experts: int, cap: int):
+    """:func:`assign_slots` of the DTensors ``gate_idx`` and ``gate_vals``
+    (laid out by :func:`on_group_shards`), each rank building the slots of
+    its own experts, as XLA carries ``moe_ecd``'s experts over TP back into
+    the dispatch and the combine: ``(dispatch, combine)`` keep the inputs'
+    shards and hold the experts' on each TP mesh dim that E divides, where
+    ``gate_vals``' gradient is a partial sum. DTensor would build every
+    expert's slots on each rank, and compute every expert's products."""
+    mesh = gate_vals.device_mesh
+    mc = current_mesh()
+    tp = (mc.rules.resolve("tp", mesh) if mc is not None else None) or ()
+    placements = tuple(gate_vals.placements)
+    out_pl, grad_pl = list(placements), list(placements)
+    split, index = 1, 0
+    for m, (name, size, coord) in enumerate(zip(
+            mesh.mesh_dim_names, mesh.shape, mesh.get_coordinate())):
+        if (name in tp and placements[m] == Replicate()
+                and num_experts % (split * size) == 0):
+            split, index = split * size, index * size + coord
+            out_pl[m], grad_pl[m] = Shard(2), Partial()
+    count = num_experts // split
+
+    def local(idx, vals):
+        return expert_slots(idx, vals, cap, index * count, count)
+
+    local_map_calls["expert shards"] += 1
+    return map_local(local, (tuple(out_pl),) * 2, (placements,) * 2, mesh,
+                     (placements, tuple(grad_pl)))(gate_idx, gate_vals)
+
+
+def _gates(probs: torch.Tensor,
+           k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gate_vals, gate_idx) of router probabilities (n, g, E): the top-k
+    and its normalised gates, each (n, g, k)."""
+    gate_vals, gate_idx = top_k(probs, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-    dispatch, combine = assign_slots(gate_idx, gate_vals, num_experts, cap)
-    return gate_vals, gate_idx, dispatch, combine
+    return gate_vals, gate_idx
 
 
 def apply_moe(p: Params, x: torch.Tensor,
@@ -125,7 +175,14 @@ def apply_moe(p: Params, x: torch.Tensor,
     n_groups, g = group_split(b * s, m.group_size)
     xg = x.reshape(n_groups, g, d)
 
-    logits = einsum("ngd,de->nge", xg, p["router"]["w"].to(x.dtype)).float()
+    w = p["router"]["w"].to(x.dtype)
+    if w.requires_grad:
+        # a step that takes the router's gradient: XLA splits the router's
+        # products (forward and both gradients) over the experts' TP shards
+        # and gathers the logits; an inference step computes them whole,
+        # as XLA does
+        w = shard_over(w, 1, "tp")
+    logits = replicate_dim(einsum("ngd,de->nge", xg, w), 2).float()
     probs = torch.softmax(logits, dim=-1)
 
     # aux losses (computed over all tokens)
@@ -133,11 +190,17 @@ def apply_moe(p: Params, x: torch.Tensor,
     z_loss = m.router_z_coef * z.square().mean()
     me = probs.reshape(-1, m.num_experts).mean(0)
 
-    route = functools.partial(_route, k=m.top_k, num_experts=m.num_experts,
-                              cap=capacity(cfg, g))
+    cap = capacity(cfg, g)
     if isinstance(probs, DTensor):
-        route = on_group_shards(route, probs, n_out=4)
-    gate_vals, gate_idx, dispatch, combine = route(probs)    # (n, g, k) ...
+        gates = on_group_shards(functools.partial(_gates, k=m.top_k), probs,
+                                n_out=2)
+        gate_vals, gate_idx = gates(probs)                   # (n, g, k)
+        dispatch, combine = _slots_on_expert_shards(
+            gate_idx, gate_vals, m.num_experts, cap)
+    else:
+        gate_vals, gate_idx = _gates(probs, m.top_k)
+        dispatch, combine = assign_slots(gate_idx, gate_vals, m.num_experts,
+                                         cap)
 
     # one-hot expert assignment per (token, k): (n, g, k, E)
     assign = (gate_idx[..., None] == constant_like(torch.arange(
@@ -147,13 +210,11 @@ def apply_moe(p: Params, x: torch.Tensor,
 
     dt = x.dtype
     spec = "moe_ecd_grouped" if m.dispatch_local else "moe_ecd"
-    if s == 1:
-        # decode's one token a row, its group whole: XLA carries the
-        # experts' TP shards back into the dispatch product and the tokens'
-        # batch shards into the combine, where DTensor would compute every
-        # expert's slots and every token on each rank
-        dispatch = shard_over(dispatch, 2, "tp")
-        combine = shard_over(combine, 1, "batch")
+    # dispatch and combine hold the rank's experts; a group that is whole
+    # over the batch axes (decode's one token a row) gives the combine the
+    # tokens' batch shards too, as XLA carries them back into it, where
+    # DTensor would combine every token on each rank
+    combine = shard_over(combine, 1, "batch")
     expert_in = einsum("ngd,ngec->necd", xg, dispatch.to(dt))
     expert_in = shard(expert_in, spec)
     w = p["experts"]

@@ -35,7 +35,8 @@ from repro_torch.device import require_device
 from repro_torch.kernels.ref import rglru_scan_ref
 from repro_torch.parallel.sharding import einsum, shard
 from .config import ModelConfig
-from .layers import Params, _weak, dense_init
+from .layers import (Params, _one_token_whole_heads, _weak, dense_init,
+                     gather_tokens, split_contraction)
 
 _RGLRU_C = 8.0
 
@@ -163,12 +164,16 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     }
 
 
-def _slstm_cell(gx, h_prev, c_prev, n_prev, m_prev, wh):
+def _slstm_cell(gx, h_prev, c_prev, n_prev, m_prev, wh, split=False):
     """One sLSTM time step (stabilized exponential gating).
 
     gx: (B, 4, nh, hd) input contribution, fp32; states: (B, nh, hd), fp32;
-    wh: (nh, hd, 4, hd), fp32 (the recurrent product stays fp32)."""
-    gr = einsum("bhk,hkgl->bghl", h_prev, wh)  # recurrent contribution
+    wh: (nh, hd, 4, hd), fp32 (the recurrent product stays fp32). With
+    ``split`` (a sharded decode step) the recurrent product's contraction
+    is split over TP, as XLA splits it."""
+    eq = "bhk,hkgl->bghl"                      # recurrent contribution
+    gr = (split_contraction(eq, h_prev, wh, w_dim=1) if split
+          else einsum(eq, h_prev, wh))
     g = (gx + gr).float()
     i_t, f_t, z_t, o_t = g.unbind(1)
     m_t = torch.maximum(f_t + m_prev, i_t)
@@ -242,17 +247,36 @@ def init_slstm_state(cfg: ModelConfig, batch: int, device="cuda") -> Params:
             "m": torch.full(shape, _M0, device=device)}
 
 
+def _project_in(eq: str, x: torch.Tensor, w: torch.Tensor,
+                split: bool) -> torch.Tensor:
+    """x (B, S, d) by a weight whose first dim is d; with ``split`` (a
+    sharded decode step) the contraction is split where the weight lies."""
+    return split_contraction(eq, x, w) if split else einsum(eq, x, w)
+
+
+def _project_out(y: torch.Tensor, w: torch.Tensor,
+                 split: bool) -> torch.Tensor:
+    """y (B, S, d) by ``rg_out/wo`` (d, d); with ``split`` the tokens come
+    to the weight's FSDP shard of its output."""
+    eq = "...d,dk->...k"
+    return gather_tokens(eq, y, w) if split else einsum(eq, y, w)
+
+
 def step_slstm(p: Params, x: torch.Tensor, state: Params,
                cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
-    """x: (B, 1, d); state: {h, c, n, m}, each (B, nh, hd) fp32."""
+    """x: (B, 1, d); state: {h, c, n, m}, each (B, nh, hd) fp32. On a mesh
+    whose TP axis the heads do not divide, every product keeps its weight
+    where it lies and moves the tokens, as XLA partitions a one-token step
+    (``layers.split_contraction``, ``gather_tokens``)."""
     b = x.shape[0]
     dt = x.dtype
-    gx = einsum("bsd,dghl->bsghl", x, p["lstm_wx"].to(dt))
+    split = _one_token_whole_heads(x, cfg.n_heads)
+    gx = _project_in("bsd,dghl->bsghl", x, p["lstm_wx"].to(dt), split)
     gx = gx[:, 0].float() + p["lstm_b"]
     h, c, n, m = _slstm_cell(gx, state["h"], state["c"], state["n"],
-                             state["m"], p["lstm_wh"])
+                             state["m"], p["lstm_wh"], split)
     y = h.reshape(b, 1, -1).to(dt)
-    out = einsum("...d,dk->...k", y, p["rg_out"]["wo"].to(dt))
+    out = _project_out(y, p["rg_out"]["wo"].to(dt), split)
     return out, {"h": h, "c": c, "n": n, "m": m}
 
 
@@ -275,17 +299,21 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     }
 
 
-def _mlstm_gates(p: Params, x: torch.Tensor):
+def _mlstm_gates(p: Params, x: torch.Tensor, split: bool = False):
     """x: (B, S, d) -> q, k, v (B, S, nh, hd) and the output gate (B, S, d)
-    in x's dtype; the log input and forget gates (B, S, nh) in fp32."""
+    in x's dtype; the log input and forget gates (B, S, nh) in fp32. With
+    ``split`` (a sharded decode step) the products whose weights hold an
+    FSDP shard of d split their contraction where it lies; ``lstm_wif`` is
+    replicated, and XLA computes it whole, as DTensor does."""
     dt = x.dtype
-    qkv = einsum("bsd,dghl->bsghl", x, p["lstm_wqkv"].to(dt))
+    qkv = _project_in("bsd,dghl->bsghl", x, p["lstm_wqkv"].to(dt), split)
     q, k, v = qkv.unbind(2)                              # (B,S,nh,hd)
     iflog = einsum("bsd,dgh->bsgh", x, p["lstm_wif"].to(dt))
     iflog = iflog.float() + p["lstm_bif"]
     i_t, f_t = iflog.unbind(2)                           # (B,S,nh)
     f_t = -_softplus(-f_t)                               # logsigmoid
-    og = torch.sigmoid(einsum("bsd,dk->bsk", x, p["lstm_wog"].to(dt)))
+    og = torch.sigmoid(_project_in("bsd,dk->bsk", x, p["lstm_wog"].to(dt),
+                                   split))
     hd = q.shape[-1]
     k = k / _weak(math.sqrt(hd), dt)
     return q, k, v, i_t, f_t, og
@@ -343,13 +371,14 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, device="cuda") -> Params:
 def step_mlstm(p: Params, x: torch.Tensor, state: Params,
                cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
     """x: (B, 1, d); state: {C (B, nh, hd, hd), n (B, nh, hd), m (B, nh)},
-    fp32."""
+    fp32. The products are laid out as :func:`step_slstm`'s."""
     b, _, d = x.shape
     dt = x.dtype
-    q, k, v, i_t, f_t, og = _mlstm_gates(p, x)
+    split = _one_token_whole_heads(x, cfg.n_heads)
+    q, k, v, i_t, f_t, og = _mlstm_gates(p, x, split)
     qt, kt, vt = (a[:, 0].float() for a in (q, k, v))
     C, n, m, h = _mlstm_cell(state["C"], state["n"], state["m"], qt, kt, vt,
                              i_t[:, 0], f_t[:, 0])
     h = h.reshape(b, 1, d).to(dt) * og.to(dt)
-    out = einsum("...d,dk->...k", h, p["rg_out"]["wo"].to(dt))
+    out = _project_out(h, p["rg_out"]["wo"].to(dt), split)
     return out, {"C": C, "n": n, "m": m}

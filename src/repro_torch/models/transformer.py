@@ -684,12 +684,18 @@ def serve_step(params: Params, state: Params, token: torch.Tensor,
         x = x + table.index_select(0, row)[None].to(dt)
 
     if cfg.n_groups > 0:
-        slots = {key: _unstack(st, cfg.n_groups)
-                 for key, st in state["scan"].items()}
+        # a leaf sharded over its stacked dim (the mLSTM's (G, B, nh) ``m``,
+        # whose rule lays out B's roles from dim 0) is gathered to be
+        # unbound: the slots write into the whole copy, which is written
+        # back after the groups
+        scan = tree_map(lambda t: replicate_dim(t, 0), state["scan"])
+        slots = {key: _unstack(st, cfg.n_groups) for key, st in scan.items()}
         for g, gp in enumerate(_unstack(params["scan"], cfg.n_groups)):
             for si, kind in enumerate(cfg.pattern):
                 key = f"s{si}_{kind}"
                 x = _step_block(kind, gp[key], x, slots[key][g], pos, cfg)
+        tree_map(lambda dst, src: dst is src or dst.copy_(src),
+                 state["scan"], scan)
     for si, kind in enumerate(cfg.tail_pattern):
         key = f"t{si}_{kind}"
         x = _step_block(kind, params["tail"][key], x, state["tail"][key],

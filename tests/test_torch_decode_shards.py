@@ -13,13 +13,15 @@ unsharded port and the reference.
   gemma-7b smoke (heads divide ``model``), the ``CELLS`` of
   ``test_torch_dryrun.py`` (heads, or kv heads, that do not), a window
   whose ring buffer wraps (recurrentgemma-2b smoke, window 8 under a
-  16-position cache) and cross-attention over a sequence-sharded ``xk`` /
-  ``xv`` (whisper-small smoke, every gate at 0.5). Each case's logits and
-  final state against the unsharded port and against the reference's
-  ``serve_step`` jitted on 4 forced host devices with ``AxisType.Auto``
-  axes, at 1e-5.
+  16-position cache), cross-attention over a sequence-sharded ``xk`` /
+  ``xv`` (whisper-small smoke, every gate at 0.5) and xlstm-350m smoke with
+  3 heads (no cache: its one-token projections keep their weights where
+  they lie, ``layers.split_contraction``, ``gather_tokens``). Each case's
+  logits and final state against the unsharded port and against the
+  reference's ``serve_step`` jitted on 4 forced host devices with
+  ``AxisType.Auto`` axes, at 1e-5.
 * The production ``decode_32k`` cells on 16 x 16 (256 fake ranks) against
-  the reference's counts.
+  the reference's counts, xlstm-350m's on 2 x 16 x 16 too.
 """
 import json
 import os
@@ -39,7 +41,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import flop_count
 from repro_torch.kernels import ops
 from repro_torch.launch import dryrun, make_debug_mesh, steps
-from repro_torch.models import layers
+from repro_torch.models import layers, recurrent
 from repro_torch.models import transformer as tt
 from repro_torch.parallel import sharding as sh
 from repro_torch.tree import tree_map
@@ -55,6 +57,10 @@ CASES = {
     "heads-whole-kv": ("gemma-7b", {"n_heads": 4, "n_kv": 1}),
     "window": ("recurrentgemma-2b", {"window": 8}),
     "cross": ("whisper-small", {}),
+    # 3 heads that do not divide ``model``: the sLSTM / mLSTM projections
+    # split their contraction where the weights lie, the out-projections
+    # bring the tokens to the weights' shards
+    "xlstm": ("xlstm-350m", {"n_heads": 3, "n_kv": 3, "d_model": 48}),
 }
 
 JAX_REF = """
@@ -102,6 +108,9 @@ for name, (arch, over, b, max_len) in cases.items():
     logits = []
     for i in range(toks.shape[1]):
         lg, state = step(params, state, jnp.asarray(toks[:, i]))
+        # back to the state's shardings where XLA handed a leaf back in
+        # another (xlstm's h, as laid out by its step's products)
+        state = jax.device_put(state, dsh)
         logits.append(np.asarray(lg))
     out[name + "/logits"] = np.stack(logits)
     flat, _ = jax.tree_util.tree_flatten_with_path(state)
@@ -172,9 +181,9 @@ def _decode(name: str, mesh) -> dict:
             **{"state/" + p: whole(x).numpy() for p, x in paths(state)}}
 
 
-def _counted(name: str, calls: dict):
-    """``layers.<name>`` wrapped to count its calls into ``calls``."""
-    fn = getattr(layers, name)
+def _counted(name: str, calls: dict, module=layers):
+    """``module.<name>`` wrapped to count its calls into ``calls``."""
+    fn = getattr(module, name)
 
     def run(*args, **kwargs):
         calls[name] = calls.get(name, 0) + 1
@@ -196,6 +205,8 @@ def _rank_main(rank: int, world: int, d: str) -> None:
             with pytest.MonkeyPatch.context() as mp:
                 for fn in ("attention_placements", "combine_partials"):
                     mp.setattr(layers, fn, _counted(fn, calls))
+                for fn in ("split_contraction", "gather_tokens"):
+                    mp.setattr(recurrent, fn, _counted(fn, calls, recurrent))
                 found.update({f"{name}/{k}": v
                               for k, v in _decode(name, mesh).items()})
             found.update({f"{name}/calls/{k}": v for k, v in calls.items()})
@@ -267,7 +278,10 @@ def test_sharded_decode_matches(name, against, what, runs, unsharded):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("name", list(CASES))
+ATTENTION_CASES = [n for n in CASES if CASES[n][0] != "xlstm-350m"]
+
+
+@pytest.mark.parametrize("name", ATTENTION_CASES)
 def test_sharded_decode_attends_on_the_cache_shards(name, runs):
     """Every attention core of every step on the mesh took the cache's
     layout and combined its shards' partials: none gathered the keys."""
@@ -275,6 +289,21 @@ def test_sharded_decode_attends_on_the_cache_shards(name, runs):
     cores = port[f"{name}/calls/attention_placements"]
     assert cores >= STEPS
     assert port[f"{name}/calls/combine_partials"] == cores
+
+
+def test_sharded_xlstm_decode_keeps_the_weights_where_they_lie(runs):
+    """Every step of the xlstm case on the mesh (3 heads over ``model``'s
+    2) split the contraction of each layer's weights that hold an FSDP
+    shard of d where they lie (sLSTM ``lstm_wx`` and its recurrent
+    ``lstm_wh``, mLSTM ``lstm_wqkv`` and ``lstm_wog``) and brought the
+    tokens to each ``rg_out/wo``; it attended over no cache."""
+    port, _ = runs
+    arch, over = CASES["xlstm"]
+    cfg = get_config(arch, smoke=True).replace(**over)
+    assert cfg.n_heads % 2
+    assert port["xlstm/calls/split_contraction"] == STEPS * 2 * cfg.n_layers
+    assert port["xlstm/calls/gather_tokens"] == STEPS * cfg.n_layers
+    assert "xlstm/calls/attention_placements" not in port
 
 
 def test_the_cases_cross_the_cache_shards():
@@ -388,9 +417,10 @@ REFERENCE_DECODE = {   # arch: (GiB, FLOPs, wire bytes)
     "llama-3.2-vision-90b": (26.47, "1.298e+11", 1.351e10),
     "recurrentgemma-2b": (0.76, "3.764e+09", 4.423e8),
     "whisper-small": (3.49, "1.398e+09", 3.789e7),
+    "xlstm-350m": (0.29, "6.199e+08", 5.96e7),
 }
 COUNTED = ["gemma-7b", "phi4-mini-3.8b", "recurrentgemma-2b",
-           "whisper-small"]
+           "whisper-small", "xlstm-350m"]
 WIRE_LIMIT = 1.5       # the port's wire bytes over the reference's, at most
 
 
@@ -461,3 +491,27 @@ def test_no_collective_moves_the_cache(arch, decode_cells):
     big = [s for s in shapes if len(s) >= 4 and s[-1] == cfg.head_dim
            and np.prod(s) >= shard]
     assert shapes and not big
+
+
+# xlstm-350m ``decode_32k`` on 2 x 16 x 16 (512 forced host devices, Auto
+# axes): GiB, FLOPs, wire bytes a device
+REFERENCE_DECODE_PODS = {"xlstm-350m": (0.19, "3.100e+08", 4.925e7)}
+
+
+@pytest.mark.parametrize("arch", sorted(REFERENCE_DECODE_PODS))
+def test_decode_cell_on_two_pods_is_the_references(arch):
+    """The cell on the multi-pod mesh (batch over ``pod`` and ``data``):
+    FLOPs the reference's at 4 digits, bytes not above, wire bytes at most
+    1.5x."""
+    cfg = get_config(arch).replace(use_flash_kernel=True)
+    with dryrun.fake_process_group(512):
+        mesh = dryrun.make_production_mesh(multi_pod=True, device_type="cpu")
+        c = dryrun.trace_step(cfg, SHAPES["decode_32k"], mesh)["counts"]
+    gib, flops, wire = REFERENCE_DECODE_PODS[arch]
+    print(f"\n{arch} decode_32k 2x16x16: FLOPs {c.flops:.4e}, "
+          f"{c.peak_bytes / 2**30:.2f} GiB, wire bytes "
+          f"{c.collectives.total_bytes:.4e} a device (reference {flops}, "
+          f"{gib}, {wire:.4e})")
+    assert f"{c.flops:.4g}" == f"{float(flops):.4g}"
+    assert round(c.peak_bytes / 2**30, 2) <= gib
+    assert c.collectives.total_bytes <= WIRE_LIMIT * wire

@@ -228,8 +228,10 @@ def test_embedding_on_gloo_ranks_is_the_whole_lookup(gloo):
 
 GIB = 2**30
 # arctic-480b cut to one layer at ``train_4k`` on 16 x 16, on fake CPU
-# tensors: FLOPs a device before and after the moves were ordered
-ONE_LAYER_FLOPS = "3.9159e+13"
+# tensors: FLOPs a device, the same before and after the moves were ordered
+# (3.9159e+13 while every rank computed every expert's dispatch, combine
+# and router products; the rank's experts' alone since)
+ONE_LAYER_FLOPS = "3.1944e+13"
 
 
 @pytest.fixture(scope="module")
