@@ -5,8 +5,10 @@ dispatcher op: ``repro_torch::flash_attention_fwd``,
 ``repro_torch::rglru_scan_fwd`` and ``repro_torch::rglru_scan_bwd``. On CUDA
 tensors each launches its CUDA kernel through ``ctypes``; its registered CPU
 kernel is the plain version. There is no other path. The backward passes
-follow ``repro.kernels.ops``: ``flash_attention`` differentiates the plain
-reference, recomputed from the saved (q, k, v); ``rglru_scan`` runs the
+follow ``repro.kernels.ops``: ``flash_attention``'s is the plain
+reference's gradient, written out from the saved (q, k, v) without the
+output product that autograd of a recompute would form and XLA drops as
+dead; ``rglru_scan`` runs the
 reverse-time adjoint recurrence in the scan kernel's reverse mode, which also
 forms da, so the backward makes no flipped or shifted copies.
 ``FlopCounterMode`` reads the flash op's FLOP formula: a step's count on the
@@ -22,10 +24,9 @@ heads where they divide, else over the sequence; k and v whole where q's
 shard is one they do not share. A rank then needs its own query offset
 and its slice of the kv heads, which no ``register_sharding`` rule can
 give, so the flash forward runs under ``local_map`` with the rank's
-``AttentionLayout``. Its backward, the plain reference's VJP through
-autograd, cannot run inside a custom op and runs under ``local_map`` too:
-it takes the whole local k and v and slices inside, so that autograd
-scatters zeros outside the slice, and k's and v's gradients come back as
+``AttentionLayout``. Its backward, the plain reference's VJP, runs under
+``local_map`` too: it takes the whole local k and v and slices inside,
+writing zeros outside the slice, and k's and v's gradients come back as
 partial sums wherever q is sharded and they are whole. The gradients come
 back contiguous, since DTensor plans the views that follow from global
 strides, which a permuted local gradient does not have.
@@ -131,20 +132,22 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def _flash_vjp(q, k, v, g, causal: bool, window: int, layout=None):
-    """(dq, dk, dv): the plain reference differentiated by autograd,
-    recomputed from (q, k, v). With a rank's ``layout``, at its query
-    offset and with k and v cut to its kv heads inside, so that their
-    gradients are zero outside the slice."""
-    with torch.enable_grad():
-        qkv = [x.detach().requires_grad_() for x in (q, k, v)]
-        q_, k_, v_ = qkv
-        off = None
-        if layout is not None:
-            k_, v_ = layout.kv_slice(k_), layout.kv_slice(v_)
-            off = layout.q_offset
-        out = ref.flash_attention_ref(q_, k_, v_, causal=causal,
-                                      window=window, q_offset=off)
-    return torch.autograd.grad(out, qkv, g)
+    """(dq, dk, dv): the plain reference's gradient, written out from the
+    saved (q, k, v) (``ref.flash_attention_vjp``). With a rank's
+    ``layout``, at its query offset and with k and v cut to its kv heads,
+    their gradients zero outside the slice."""
+    if layout is None:
+        return ref.flash_attention_vjp(q, k, v, g, causal, window)
+    dq, dk, dv = ref.flash_attention_vjp(q, layout.kv_slice(k),
+                                         layout.kv_slice(v), g, causal,
+                                         window, layout.q_offset)
+    if layout.kv_heads is None:
+        return dq, dk, dv
+    heads = slice(*layout.kv_heads)
+    whole = [torch.zeros_like(x) for x in (k, v)]
+    for w, part in zip(whole, (dk, dv)):
+        w[:, :, heads] = part
+    return (dq, *whole)
 
 
 def _flash_vjp_dense(q, k, v, g, causal: bool, window: int, layout):

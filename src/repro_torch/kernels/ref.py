@@ -13,6 +13,30 @@ from typing import Optional
 import torch
 
 
+def attention_probs(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+                    window: int = 0, q_offset: Optional[int] = None):
+    """The softmax of ``flash_attention_ref``: q (B,S,H,D), k (B,T,Kv,D).
+
+    Returns (qg, kf, p, m): q grouped as (B,S,Kv,G,D) and k in fp32, the
+    weights p (B,Kv,G,S,T) in fp32 and the mask m (S,T) (True = attend),
+    or None when not ``causal``."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, d).float()
+    kf = k.float()
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, kf) / math.sqrt(d)
+    m = None
+    if causal:
+        off = t - s if q_offset is None else q_offset
+        qi = torch.arange(s, device=q.device)[:, None] + off
+        ki = torch.arange(t, device=q.device)[None, :]
+        m = ki <= qi
+        if window > 0:
+            m &= ki > qi - window
+        logits = torch.where(m, logits, torch.tensor(-1e30, device=q.device))
+    return qg, kf, torch.softmax(logits, dim=-1), m
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0,
                         q_offset: Optional[int] = None) -> torch.Tensor:
@@ -23,24 +47,40 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T - S when ``q_offset`` is None, as in ``repro.kernels.ref``; a shard of
     the sequence passes its own. ``window`` applies only with ``causal``.
     """
+    _, _, w, _ = attention_probs(q, k, causal, window, q_offset)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, causal: bool = True,
+                        window: int = 0, q_offset: Optional[int] = None):
+    """(dq, dk, dv) of ``flash_attention_ref`` at (q, k, v) for its output's
+    gradient g, written out in its dtypes (fp32 inside, each gradient in
+    its input's dtype): P = softmax(s), dv = Pᵀ·g, dP = g·vᵀ,
+    dS = P ∘ (dP − rowsum(P ∘ dP)) (0 where masked), dq = dS·k·scale,
+    dk = dSᵀ·q·scale, the GQA groups summed into dk and dv. Five products
+    of 2·B·H·S·T·D: autograd of the recompute also forms the output P·V,
+    which no gradient needs. Each product and the softmax's backward are
+    laid out as autograd's of ``flash_attention_ref`` (dv's contraction
+    over (S, G) in that order), so that on the CPU the gradients are its
+    bit for bit."""
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
-    g = h // kv
-    qg = q.reshape(b, s, kv, g, d).float()
-    kf = k.float()
-    vf = v.float()
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, kf) / math.sqrt(d)
-    if causal:
-        off = t - s if q_offset is None else q_offset
-        qi = torch.arange(s, device=q.device)[:, None] + off
-        ki = torch.arange(t, device=q.device)[None, :]
-        m = ki <= qi
-        if window > 0:
-            m &= ki > qi - window
-        logits = torch.where(m, logits, torch.tensor(-1e30, device=q.device))
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", w, vf)
-    return out.reshape(b, s, h, d).to(q.dtype)
+    qg, kf, p, m = attention_probs(q, k, causal, window, q_offset)
+    gg = g.reshape(b, s, kv, h // kv, d).float()
+    dv = torch.einsum("bkjt,bkjd->btkd",
+                      p.transpose(2, 3).reshape(b, kv, -1, t),
+                      gg.transpose(1, 2).reshape(b, kv, -1, d)).to(v.dtype)
+    dp = torch.einsum("bskgd,btkd->bkgst", gg, v.float())
+    ds = torch._softmax_backward_data(dp, p, -1, torch.float32)
+    del dp, p
+    if m is not None:
+        ds.masked_fill_(~m, 0.0)
+    ds.div_(math.sqrt(d))
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf).reshape(q.shape)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv
 
 
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.device import require_device
 from repro_torch.parallel.sharding import (attention_placements, constant_like,
                                            einsum, gather_like,
-                                           local_map_calls, map_local,
+                                           layout_of, local_map_calls,
+                                           map_local, placements_over,
                                            redistribute, reduce_partials,
                                            role_size, shard, shard_over,
                                            write_slot)
@@ -168,16 +169,68 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor):
-    """The projections. On a mesh the k/v weights are sliced over heads
-    where ``_shard_kv`` shards k and v over them, and q's product runs on
-    x's sequence shards where ``_shard_q`` shards q over the sequence: XLA
-    carries those constraints back into the products, DTensor does not."""
+    """The projections. On a mesh XLA carries the reference's layout
+    constraints (``_shard_q``, ``_shard_kv``) back into them and DTensor
+    does not, so the port places them as XLA's partitioner does: the k/v
+    weights are sliced over heads where k and v are sharded over them;
+    where q's heads do not divide TP, q's product runs on x's sequence
+    shard. Where the kv heads do not divide TP either, k and v are whole
+    there: with q over the sequence, k's product runs on the shard too
+    (``_shard_kv`` gathers it) and v's stays whole; with q over heads,
+    both stay whole. The whole ones take their backward on the shard
+    (:func:`project_whole`). Cross-attention's k and v, decode's one token
+    and a sequence that does not divide pass through."""
     dt = x.dtype
-    if p["wq"].shape[1] % max(role_size("tp"), 1):
-        x = shard_over(x, x.ndim - 2, "sp")
-    return (project_heads(x, p["wq"].to(dt)),
-            project_heads(kv_src, shard_over(p["wk"].to(dt), 1, "tp")),
-            project_heads(kv_src, shard_over(p["wv"].to(dt), 1, "tp")))
+    tp = max(role_size("tp"), 1)
+    wq = p["wq"].to(dt)
+    wk, wv = (shard_over(p[n].to(dt), 1, "tp") for n in ("wk", "wv"))
+    seq = placements_over(x, x.ndim - 2, "sp")
+    split_q = wq.shape[1] % tp > 0
+    x_s = redistribute(x, seq) if split_q and seq is not None else x
+    q = project_heads(x_s, wq)
+    if kv_src is not x or seq is None or wk.shape[1] % tp == 0:
+        return q, project_heads(kv_src, wk), project_heads(kv_src, wv)
+    if not split_q:
+        return q, project_whole(x, wk, seq), project_whole(x, wv, seq)
+    return q, project_heads(x_s, wk), project_whole(x, wv, seq, x_s)
+
+
+class _ProjectWhole(torch.autograd.Function):
+    """``einsum("...sd,dhk->...shk", x, w)`` computed whole over TP, its
+    backward on x's sequence shard (placements ``seq``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, seq, x_s):
+        out = einsum("...sd,dhk->...shk", x, w)
+        ctx.save_for_backward(x if x_s is None else x_s, w)
+        ctx.placements = seq, out.placements, w.placements
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        seq, whole, w_placements = ctx.placements
+        x_s, g_s = redistribute(x, seq), redistribute(g, seq)
+        dw = redistribute(einsum("...sd,...shk->dhk", x_s, g_s), w_placements)
+        if ctx.needs_input_grad[3]:
+            return None, dw, None, einsum("...shk,dhk->...sd", g_s, w)
+        dx = einsum("...shk,dhk->...sd", redistribute(g_s, whole), w)
+        return dx, dw, None, None
+
+
+def project_whole(x: torch.Tensor, w: torch.Tensor, seq,
+                  x_s: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w`` into heads, whole over TP, with its backward where XLA
+    partitions it: the gradient (a pending sum where q is sharded and k, v
+    are whole) is reduce-scattered to x's sequence shard ``seq`` (its
+    placements) and w's gradient taken there; x's gradient is taken there
+    too, into ``x_s`` (x cut to ``seq``) where it is given, else whole from
+    the gradient gathered back. The one of x and ``x_s`` that takes no
+    gradient goes in detached: autograd would hand its producer a plain
+    tensor of zeros."""
+    if x_s is None:
+        return _ProjectWhole.apply(x, w, seq, None)
+    return _ProjectWhole.apply(x.detach(), w, seq, x_s)
 
 
 def _one_token_whole_heads(x: torch.Tensor, heads: int) -> bool:
@@ -246,9 +299,15 @@ def _shard_q(q: torch.Tensor) -> torch.Tensor:
 
 
 def _shard_kv(t: torch.Tensor) -> torch.Tensor:
-    if t.shape[-2] % max(role_size("tp"), 1) == 0:
-        return shard(t, "act_kv_heads")
-    return shard(t, "act_kv")
+    """k or v over heads where they divide the TP axis, else whole there.
+    One already so laid out passes as it is, so that the pending sums of
+    its gradient reach the product that made it (:func:`project_whole`
+    reduce-scatters them)."""
+    want = layout_of(t, "act_kv_heads" if t.shape[-2]
+                     % max(role_size("tp"), 1) == 0 else "act_kv")
+    if want is None or t.placements == want:
+        return t
+    return redistribute(t, want)
 
 
 def mha_logits_to_out(q, k, v, mask, cfg: Optional[ModelConfig],

@@ -395,38 +395,53 @@ def map_local(fn, out_placements, in_placements, mesh: DeviceMesh,
     return run
 
 
-def shard(x, name: str):
-    """Annotate activation ``x`` with the logical sharding ``name``: a
-    DTensor is redistributed to it, a plain tensor passes through. The
-    identity with no mesh current, no spec for the name and rank, or a
+def layout_of(x, name: str) -> Optional[Tuple[Placement, ...]]:
+    """The placements :func:`shard` moves a DTensor ``x`` to under the
+    logical sharding ``name``, or None where it passes ``x`` through: no
+    mesh current, not a DTensor, no spec for the name and rank, or a
     sharded dim that does not divide evenly."""
     mc = current_mesh()
     if mc is None or not isinstance(x, DTensor):
-        return x
+        return None
     spec = _spec_for(name, x.ndim, mc)
     if spec is None or not _divides(x.shape, spec, mc.mesh):
-        return x
-    return redistribute(x, _placements(mc.mesh, spec))
+        return None
+    return _placements(mc.mesh, spec)
 
 
-def shard_over(x, dim: int, role: str):
-    """``x`` with tensor dim ``dim`` sharded over ``role``'s mesh axes: a
-    DTensor replicated there is sliced (no data moves). Anything else, a
-    dim that does not divide, or a mesh axis already in use passes
-    through."""
+def shard(x, name: str):
+    """Annotate activation ``x`` with the logical sharding ``name``: a
+    DTensor is redistributed to it (:func:`layout_of`), anything else
+    passes through."""
+    want = layout_of(x, name)
+    return x if want is None else redistribute(x, want)
+
+
+def placements_over(x, dim: int, role: str
+                    ) -> Optional[Tuple[Placement, ...]]:
+    """A DTensor ``x``'s placements with tensor dim ``dim`` sharded over
+    ``role``'s mesh axes where x is replicated there, or None: anything
+    else, a dim that does not divide, or a mesh axis already in use."""
     mc = current_mesh()
     if mc is None or not isinstance(x, DTensor):
-        return x
+        return None
     axes = mc.rules.resolve(role, mc.mesh)
     if not axes or x.shape[dim] % axes_size(mc.mesh, axes):
-        return x
+        return None
     placements = list(x.placements)
     for a in axes:
         i = list(mc.mesh.mesh_dim_names).index(a)
         if not isinstance(placements[i], Replicate):
-            return x
+            return None
         placements[i] = Shard(dim)
-    return redistribute(x, placements)
+    return tuple(placements)
+
+
+def shard_over(x, dim: int, role: str):
+    """``x`` sliced to :func:`placements_over` (no data moves); anything
+    it gives None for passes through."""
+    placements = placements_over(x, dim, role)
+    return x if placements is None else redistribute(x, placements)
 
 
 def constant_like(t: torch.Tensor, ref):

@@ -15,8 +15,9 @@ against the reference's pieces.
   of the reference's compiled step on the same mesh; two more whose heads
   do not divide ``model`` (``CELLS``: q over the sequence, and q over
   heads with k and v whole), their steps flash on and off against the
-  unsharded port's and the reference's, their FLOPs against the
-  reference's less the products XLA splits over ``model``.
+  unsharded port's and the reference's, each gradient in its parameter's
+  placements, their FLOPs equal to the reference's (flash off); their
+  prefills, with the rotation and without, against both.
 * A step traced on fake tensors against the same step on real ones.
 * A production cell, gemma-7b ``train_4k`` on 16 x 16, ``ok``.
 * xlstm-350m's recurrent cells, traced at S = 16 and 32 and extrapolated
@@ -72,7 +73,8 @@ sys.path.insert(0, "src")
 from repro.configs import get_config
 from repro.core.hlo_analysis import parse_collectives
 from repro.core.hlo_static import parse_hlo_profile
-from repro.launch.steps import (make_grad_step, make_train_step,
+from repro.launch.steps import (batch_shardings, make_grad_step,
+                                make_prefill_step, make_train_step,
                                 train_in_shardings)
 from repro.optim import make_optimizer
 
@@ -130,6 +132,16 @@ for prefix, over in cells.items():
             "bytes_by_kind": prof.collective_by_kind,
             "bytes": m.argument_size_in_bytes + m.output_size_in_bytes
             + m.temp_size_in_bytes - m.alias_size_in_bytes}
+    # each new cell's prefill (flash off), with its rotation and without
+    pre = {"tokens": batch["tokens"]}
+    for rope in (True, False) if prefix else ():
+        cfg = get_config("gemma-7b", smoke=True).replace(
+            **over, **({} if rope else {"rope_theta": 0.0}))
+        (psh, _, _), _, _ = train_in_shardings(cfg, opt, batch, mesh)
+        ish = (psh, batch_shardings(pre, mesh))
+        out[f"{prefix}rope={rope}/logits"] = np.asarray(jax.jit(
+            make_prefill_step(cfg, mesh), in_shardings=ish)(
+            jax.device_put(params, psh), jax.device_put(pre, ish[1])))
 line = jax.make_mesh((4,), ("x",), axis_types=(auto,))
 S0, S1, R = (NamedSharding(line, p) for p in (P("x"), P(None, "x"), P()))
 # a partial sum on each device (its slice of a (4, 16, 64) stack), summed
@@ -183,9 +195,14 @@ def paths(tree, prefix: str = ""):
         yield prefix, tree
 
 
-def _grad_step(mesh, arch: str = ARCH, flash: bool = True, **over) -> dict:
+def _grad_step(mesh, arch: str = ARCH, flash: bool = True,
+               train: bool = False, **over) -> dict:
     """The grad step's loss and gradients, on ``mesh`` or (None)
-    unsharded, the flash kernel on unless ``flash`` is False."""
+    unsharded, the flash kernel on unless ``flash`` is False; with
+    ``train`` also the attention weights' gradients' placements beside
+    their parameters' ("pl/"), then one train step on the mesh and the
+    count of its new parameter and optimizer-state leaves not in their
+    rules' placements ("misplaced")."""
     cfg, params, tokens = numpy_inputs(arch, **over)
     cfg = cfg.replace(use_flash_kernel=flash)
     batch = {"tokens": torch.from_numpy(tokens[:, :-1]),
@@ -193,13 +210,46 @@ def _grad_step(mesh, arch: str = ARCH, flash: bool = True, **over) -> dict:
     tp = params_from_numpy(params, "cpu")
     if mesh is not None:
         opt = make_optimizer("adamw", lr=LR)
-        (psh, _, bsh), _, _ = steps.train_in_shardings(cfg, opt, batch, mesh)
+        (psh, osh, bsh), _, _ = steps.train_in_shardings(cfg, opt, batch,
+                                                         mesh)
         tp, batch = sh.distribute(tp, psh), sh.distribute(batch, bsh)
     grads, metrics = steps.make_grad_step(cfg, mesh)(tp, batch)
     whole = (lambda x: x.full_tensor()) if mesh is not None else (
         lambda x: x)
-    return {"loss": float(metrics["loss"]),
-            **{"g/" + p: whole(x).detach().numpy() for p, x in paths(grads)}}
+    out = {"loss": float(metrics["loss"]),
+           **{"g/" + p: whole(x).detach().numpy() for p, x in paths(grads)}}
+    if train:
+        attn = tp["scan"]["s0_attn"]["attn"]
+        out.update({"pl/" + n: np.array([str(g.placements),
+                                         str(attn[n].placements)])
+                    for n, g in grads["scan"]["s0_attn"]["attn"].items()})
+        state = opt.init(tp)
+        tp, state, _ = steps.make_train_step(cfg, opt, mesh)(tp, state,
+                                                             batch)
+        placed = [x.placements == s.placements
+                  for (_, x), (_, s) in zip(paths(tp), paths(psh))]
+        placed += [isinstance(x, int) or x.placements == s.placements
+                   for (_, x), (_, s) in zip(paths(state), paths(osh))]
+        out["misplaced"] = placed.count(False)
+    return out
+
+
+def _prefill(mesh, rope: bool, **over) -> np.ndarray:
+    """The prefill step's logits (flash off), with the config's rotation
+    or (``rope`` False) none, on ``mesh`` or (None) unsharded."""
+    cfg, params, tokens = numpy_inputs(**over)
+    if not rope:
+        cfg = cfg.replace(rope_theta=0.0)
+    pre = {"tokens": torch.from_numpy(tokens[:, :-1])}
+    tp = params_from_numpy(params, "cpu")
+    if mesh is not None:
+        opt = make_optimizer("adamw", lr=LR)
+        (psh, _, _), _, _ = steps.train_in_shardings(
+            cfg, opt, {**pre, "labels": pre["tokens"]}, mesh)
+        tp = sh.distribute(tp, psh)
+        pre = sh.distribute(pre, steps.batch_shardings(pre, mesh))
+    logits = steps.make_prefill_step(cfg, mesh)(tp, pre)
+    return (logits.full_tensor() if mesh is not None else logits).numpy()
 
 
 def _decode(mesh) -> dict:
@@ -273,8 +323,11 @@ def _rank_main(rank: int, world: int, d: str) -> None:
                  **_einsum_cases(mesh),
                  **{f"{cell}/flash={flash}/{k}": v
                     for cell, flash in CELL_RUNS
-                    for k, v in _grad_step(mesh, flash=flash,
-                                           **CELLS[cell]).items()}}
+                    for k, v in _grad_step(mesh, flash=flash, train=True,
+                                           **CELLS[cell]).items()},
+                 **{f"{cell}/rope={rope}/logits":
+                    _prefill(mesh, rope, **CELLS[cell])
+                    for cell in CELLS for rope in (True, False)}}
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -371,14 +424,52 @@ def test_attention_cell_step_matches(cell, flash, against, runs,
                                      unsharded_cells):
     """The (2, 2) steps whose heads do not divide ``model``, flash on and
     off: "seq" computes attention on q's sequence shards at each rank's
-    query offset, "heads-whole-kv" on q's head shards with k and v whole,
-    each rank reading its one kv head; k's and v's gradients come back as
-    partial sums. Held as the gemma step is, against the unsharded port
+    query offset, q's and k's products on x's sequence shard and v's
+    whole; "heads-whole-kv" on q's head shards with k and v whole, each
+    rank reading its one kv head. k's and v's gradients come back as
+    partial sums, are reduce-scattered to x's sequence shard and their
+    weight gradients taken there (with q over the sequence their input
+    gradients too). Held as the gemma step is, against the unsharded port
     step and the reference's step on 4 host devices."""
     port, jref, _ = runs
     want = (unsharded_cells[cell, flash] if against == "unsharded port"
             else _cell_run(jref, cell, flash))
     _assert_step_matches(_cell_run(port, cell, flash), want)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_attention_cell_train_step_keeps_the_leaves_placements(cell, flash,
+                                                                runs):
+    """The (2, 2) cells' steps: the attention weights' gradients in their
+    parameters' placements, wk's and wv's too, whose products take their
+    backward on x's sequence shard (their pending sums reduced to the
+    FSDP shard); after one train step every new parameter and
+    optimizer-state leaf in its rule's placements."""
+    run = _cell_run(runs[0], cell, flash)
+    placed = {k: v for k, v in run.items() if k.startswith("pl/")}
+    assert sorted(placed) == ["pl/wk", "pl/wo", "pl/wq", "pl/wv"]
+    for k, (grad, param) in placed.items():
+        assert grad == param, k
+    assert run["misplaced"] == 0
+
+
+@pytest.mark.parametrize("against", ["unsharded port", "reference"])
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_attention_cell_prefill_matches(cell, rope, against, runs):
+    """The (2, 2) cells' prefill steps, with the rotation and without:
+    with q over the sequence, k's product on x's sequence shard, gathered
+    for the core, and v's whole; with q over heads, both whole. Their
+    logits within 1e-5 of the unsharded port's prefill and of the
+    reference's jitted on 4 host devices."""
+    port, jref, _ = runs
+    key = f"{cell}/rope={rope}/logits"
+    want = (_prefill(None, rope, **CELLS[cell])
+            if against == "unsharded port" else jref[key])
+    got = port[key]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_sharded_moe_step_matches_the_unsharded_step(runs):
@@ -515,18 +606,19 @@ def test_smoke_cell_flops_a_device_match_the_reference(flash, runs):
 
     With the flash kernel off they are equal: DTensor computes the same
     products on each device as XLA's partitioner. With it on there is one
-    structural gap, 3u per attention layer, u = 2·(B/2)·(H/2)·S·S·D (one
+    structural gap, 2u per attention layer, u = 2·(B/2)·(H/2)·S·S·D (one
     of attention's two products on one device): the Pallas kernel's two
     products sit in conditional branches that ``parse_hlo_profile`` does
-    not follow, and XLA drops the plain VJP's recomputed P·V product as
-    dead (``test_torch_predict.py``'s gaps, with remat off). Collective
-    bytes and bytes a device are printed beside the reference's."""
+    not follow (``test_torch_predict.py``'s gap, with remat off). The flash
+    op's backward forms no output product, which XLA drops from the plain
+    VJP as dead. Collective bytes and bytes a device are printed beside
+    the reference's."""
     cfg, got = _smoke_cell(flash)
     want = runs[2][f"flash={flash}"]
     gap = 0
     if flash:
         u = 2 * (B // 2) * (cfg.n_heads // 2) * S * S * cfg.head_dim
-        gap = cfg.n_layers * 3 * u
+        gap = cfg.n_layers * 2 * u
     print(f"\nflash={flash}: FLOPs a device {got.flops} (reference "
           f"{want['flops']:.0f} + {gap}); collective wire bytes "
           f"{got.collectives.bytes_by_kind} (reference "
@@ -536,32 +628,25 @@ def test_smoke_cell_flops_a_device_match_the_reference(flash, runs):
     assert got.flops == want["flops"] + gap
 
 
-# Products that XLA's partitioner splits over ``model`` where the layout
-# leaves them whole there, and DTensor runs them whole on each rank: the
-# weight gradients of wk and wv (k and v whole over ``model``), and with q
-# over the sequence also k's forward product and the k and v input
-# gradients, on half the sequence each (v's forward stays whole).
-KV_SPLIT = {"seq": 5, "heads-whole-kv": 2}
-
-
 @pytest.mark.parametrize("flash", [False, True])
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_attention_cell_flops_a_device(cell, flash, runs):
     """FLOPs a device of the cells whose heads do not divide ``model``
     against ``parse_hlo_profile`` of the reference's compiled step: equal
-    but for the products XLA splits over ``model`` (``KV_SPLIT`` a layer,
-    each v = 2·(B/2)·(S/2)·d·Kv·D) and, with flash on, the gemma cell's
-    3u a layer, u = 2·(B/2)·H·S·S·D / 2 (model's 2 split the heads or the
-    sequence). q's product runs on its sequence shard, as XLA carries
-    ``act_heads_seq`` back into it. Collective bytes and bytes a device
-    printed beside the reference's."""
+    with flash off, and with it on the reference's plus the gemma cell's
+    2u a layer, u = 2·(B/2)·H·S·S·D / 2 (model's 2 split the heads or the
+    sequence). The k and v products run where XLA carries ``act_kv`` and
+    ``act_heads_seq`` back into them: with q over the sequence, q's and
+    k's forward products on x's sequence shard, v's whole, and every k
+    and v gradient product on that shard; with q over heads, k and v
+    whole, their weight gradients on the shard. Collective bytes and
+    bytes a device printed beside the reference's."""
     cfg, got = _smoke_cell(flash, **CELLS[cell])
     want = runs[2][f"{cell}/flash={flash}"]
-    d, kv, hd = cfg.d_model, cfg.n_kv, cfg.head_dim
-    gap = cfg.n_layers * KV_SPLIT[cell] * 2 * (B // 2) * (S // 2) * d * kv * hd
+    gap = 0
     if flash:
-        u = 2 * (B // 2) * cfg.n_heads * S * S * hd // 2
-        gap += cfg.n_layers * 3 * u
+        u = 2 * (B // 2) * cfg.n_heads * S * S * cfg.head_dim // 2
+        gap = cfg.n_layers * 2 * u
     print(f"\n{cell} flash={flash}: FLOPs a device {got.flops} (reference "
           f"{want['flops']:.0f} + {gap}); collective wire bytes "
           f"{got.collectives.bytes_by_kind} (reference "

@@ -139,6 +139,109 @@ def test_fake_kernel_holds_the_query_offset_range(q_offset, ok):
                 op(q, k, k, True, 0, q_offset)
 
 
+# The flash op's backward: the plain reference's gradient written out
+# (``ref.flash_attention_vjp``, ``ops._flash_vjp``). Each case: batch, the
+# whole sequence, q's heads, kv heads, head width, window, the query rows
+# a sequence shard takes (None: all, at no layout), and the kv heads its
+# layout cuts k and v to (None: all).
+VJP_CASES = {
+    "gqa-2": (2, 256, 4, 2, 64, 0, None, None),
+    "gqa-4-window": (1, 256, 8, 2, 64, 64, None, None),
+    "shard-offset": (2, 512, 4, 2, 64, 0, (256, 384), None),
+    "shard-offset-window": (1, 512, 4, 1, 64, 64, (128, 256), None),
+    "kv-slice": (2, 256, 2, 4, 64, 0, (128, 256), (1, 2)),
+}
+VJP_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _vjp_inputs(name, dtype):
+    """q (B, S, H, D), k, v (B, S, Kv, D) and a cotangent g of q's shape,
+    from numpy, in both packages; the case's rows and kv slice."""
+    b, s, h, kv, d, window, rows, heads = VJP_CASES[name]
+    (jq, jk, jv), (q, k, v) = qkv(b, s, h, kv, d, dtype)
+    g = np.random.default_rng(11).standard_normal((b, s, h, d))
+    return ((jq, jk, jv, jnp.asarray(g, jnp.float32).astype(JNP[dtype])),
+            (q, k, v, torch.from_numpy(g).float().to(TORCH[dtype])),
+            window, slice(*(rows or (0, s))), slice(*(heads or (0, kv))))
+
+
+def _port_vjp(q, k, v, g, window, rows, heads):
+    """``ops._flash_vjp`` on the rows' queries, at the rows' offset and the
+    kv slice under a rank's layout, or with none for a whole case."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.sharding import AttentionLayout
+    whole = rows.start == 0 and rows.stop == q.shape[1] and \
+        heads.stop - heads.start == k.shape[2]
+    layout = None if whole else AttentionLayout(
+        (), (), (), rows.start, (heads.start, heads.stop))
+    return ops._flash_vjp(q[:, rows], k, v, g[:, rows], True, window, layout)
+
+
+def _assert_grads_close(got, want, dtype):
+    """fp32: within 1e-5 of each gradient's max; bf16: 2e-2 of its norm."""
+    for a, b in zip(got, want):
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        assert a.shape == b.shape
+        if dtype == "float32":
+            assert np.abs(a - b).max() <= VJP_TOL[dtype] * np.abs(b).max()
+        else:
+            assert np.linalg.norm(a - b) <= VJP_TOL[dtype] * np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(VJP_CASES))
+def test_flash_vjp_matches_autograd_of_the_plain_version(name, dtype):
+    """The written-out gradient against autograd of
+    ``ref.flash_attention_ref`` on the same rows, offset and kv slice (k's
+    and v's gradients zero outside the slice), in each input's dtype."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    _, (q, k, v, g), window, rows, heads = _vjp_inputs(name, dtype)
+    got = _port_vjp(q, k, v, g, window, rows, heads)
+    leaves = [x[:, rows] if i == 0 else x
+              for i, x in enumerate((q, k, v))]
+    leaves = [x.clone().requires_grad_() for x in leaves]
+    out = flash_attention_ref(leaves[0], leaves[1][:, :, heads],
+                              leaves[2][:, :, heads], causal=True,
+                              window=window, q_offset=rows.start)
+    want = torch.autograd.grad(out, leaves, g[:, rows])
+    assert [x.dtype for x in got] == [x.dtype for x in want]
+    _assert_grads_close([x.float() for x in got], [x.float() for x in want],
+                        dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(VJP_CASES))
+def test_flash_vjp_matches_the_references_vjp(name, dtype):
+    """The written-out gradient against ``jax.vjp`` of the JAX package's
+    plain version (its ``_fa_bwd``) on the whole sequence, the cotangent
+    zero outside the rows: the rows' dq, and dk and dv of the kv slice
+    with zeros outside it."""
+    (jq, jk, jv, jg), (q, k, v, g), window, rows, heads = _vjp_inputs(
+        name, dtype)
+    got = _port_vjp(q, k, v, g, window, rows, heads)
+    jg = jg.at[:, :rows.start].set(0).at[:, rows.stop:].set(0)
+    _, vjp = jax.vjp(lambda q, k, v: jax_ref.flash_attention_ref(
+        q, k, v, causal=True, window=window), jq, jk[:, :, heads],
+        jv[:, :, heads])
+    dq, dk, dv = (np.asarray(x, np.float32) for x in vjp(jg))
+    pad = [(0, 0), (0, 0), (heads.start, jk.shape[2] - heads.stop), (0, 0)]
+    want = [dq[:, rows], np.pad(dk, pad), np.pad(dv, pad)]
+    _assert_grads_close([x.float().numpy() for x in got], want, dtype)
+
+
+def test_flash_backward_counts_five_products():
+    """One backward of the op counts five products of 2·B·H·S·T·D: the
+    logits, dv = Pᵀ·g, dP = g·vᵀ, dq and dk; no output product P·V."""
+    from torch.utils.flop_counter import FlopCounterMode
+    b, s, h, kv, d = 2, 256, 4, 2, 64
+    _, (q, k, v) = qkv(b, s, h, kv, d, "float32")
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = flash_attention(q, k, v, True, 0)
+    with FlopCounterMode(display=False) as counter:
+        out.backward(torch.ones_like(out))
+    assert counter.get_total_flops() == 5 * 2 * b * h * s * s * d
+
+
 def test_undividable_seq_raises_like_jax():
     (jq, jk, jv), (q, k, v) = qkv(1, 200, 2, 2, 64, "float32")
     with pytest.raises(ValueError, match="must divide blocks"):

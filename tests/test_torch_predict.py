@@ -161,17 +161,15 @@ def test_step_flops_match_the_compiled_jax_step(arch, flash):
 
     With the flash kernel off the two counts are equal (relative 1e-6):
     the same products, the backward and the remat recompute, which both
-    sides end where its last product is dead.  With it on there are two
-    structural gaps, each a whole number of u = 2·B·H·S·T·D (one of the
-    attention's two products) per attention layer:
-
-      * 4u: the Pallas kernel runs twice a layer (forward and remat) with
-        its two products, and in the compiled HLO they sit in conditional
-        branches (the kernel's tile skipping), which ``parse_hlo_profile``
-        does not follow, so the JAX count loses them; the port counts them
-        through the flash op's FLOP formula;
-      * u: the plain VJP recomputes the attention forward; XLA drops its
-        output product P·V as dead, the port computes it.
+    sides end where its last product is dead.  With it on there is one
+    structural gap, 4u per attention layer, u = 2·B·H·S·T·D (one of the
+    attention's two products): the Pallas kernel runs twice a layer
+    (forward and remat) with its two products, and in the compiled HLO
+    they sit in conditional branches (the kernel's tile skipping), which
+    ``parse_hlo_profile`` does not follow, so the JAX count loses them;
+    the port counts them through the flash op's FLOP formula. The plain
+    VJP's products are the same on both sides: the port's forms no output
+    product P·V, which XLA drops from the reference's as dead.
 
     An MoE block has one such gap of its own: the remat recompute ends at
     the shared experts' (or the dense residual FFN's) last needed input,
@@ -190,7 +188,7 @@ def test_step_flops_match_the_compiled_jax_step(arch, flash):
     if flash:
         u = 2 * 2 * cfg.n_heads * S * S * cfg.head_dim
         n_attn = sum(k == "attn" for k in cfg.pattern) * cfg.n_groups
-        want += n_attn * (4 * u + u)
+        want += n_attn * 4 * u
     assert got == pytest.approx(want, rel=1e-6)
 
 
