@@ -52,6 +52,33 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(q.shape).to(q.dtype)
 
 
+# The bytes of one fp32 (n, G, S, T) tensor of a chunk of the flash VJP: its
+# P, dP and dS each fit, for as many (batch, kv head) slices n as do.
+VJP_CHUNK_BYTES = 256 << 20
+
+
+def spans(total: int, step: int, unit: int = 1):
+    """[start, stop) ranges of ``step`` over ``total``. A last range of one
+    slice (``unit`` slices an index) joins the one before: on the CPU a
+    batched product or a row's reduction over one slice is split over
+    threads, and sums in another order than over several."""
+    edges = [*range(0, total, step), total]
+    if len(edges) > 2 and (edges[-1] - edges[-2]) * unit == 1:
+        del edges[-2]
+    return list(zip(edges, edges[1:]))
+
+
+def _vjp_chunks(b: int, kv: int, slices: int):
+    """(batch, kv head) slices of the flattened (B, Kv) axis, ``slices`` a
+    chunk: whole batch rows where that many hold all Kv heads, else ranges
+    of one row's heads."""
+    if slices >= kv:
+        return [(slice(b0, b1), slice(0, kv))
+                for b0, b1 in spans(b, slices // kv, kv)]
+    return [(slice(b0, b0 + 1), slice(k0, k1)) for b0 in range(b)
+            for k0, k1 in spans(kv, slices)]
+
+
 def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         g: torch.Tensor, causal: bool = True,
                         window: int = 0, q_offset: Optional[int] = None):
@@ -64,7 +91,30 @@ def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     which no gradient needs. Each product and the softmax's backward are
     laid out as autograd's of ``flash_attention_ref`` (dv's contraction
     over (S, G) in that order), so that on the CPU the gradients are its
-    bit for bit."""
+    bit for bit.
+
+    It runs in chunks of the (batch, kv head) slices: as many a chunk as
+    keep its fp32 P, dP and dS within ``VJP_CHUNK_BYTES`` each, and never
+    one alone (``spans``), so a slice over the budget runs whole beside
+    another. B and Kv are batch dims of every product and dk's and dv's
+    contractions stay inside a slice, so the chunks' gradients are the
+    one-chunk result's bit for bit."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    grp = h // kv
+    slices = max(2, VJP_CHUNK_BYTES // (4 * grp * s * t))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    for bs, ks in _vjp_chunks(b, kv, slices):
+        hs = slice(ks.start * grp, ks.stop * grp)
+        dq[bs, :, hs], dk[bs, :, ks], dv[bs, :, ks] = _vjp_slices(
+            q[bs, :, hs], k[bs, :, ks], v[bs, :, ks], g[bs, :, hs], causal,
+            window, q_offset)
+    return dq, dk, dv
+
+
+def _vjp_slices(q, k, v, g, causal: bool, window: int,
+                q_offset: Optional[int]):
+    """``flash_attention_vjp`` of one chunk, whole."""
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     qg, kf, p, m = attention_probs(q, k, causal, window, q_offset)

@@ -24,9 +24,10 @@ from typing import Dict, Optional
 import torch
 import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.device import require_device
+from repro_torch.kernels.ref import spans
 from repro_torch.parallel.sharding import (attention_placements, constant_like,
                                            einsum, gather_like,
                                            layout_of, local_map_calls,
@@ -78,17 +79,98 @@ def init_norm(cfg: ModelConfig, device: torch.device) -> Params:
     return p
 
 
-def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+# The bytes of one fp32 (rows, d) temporary of a chunk of a norm's rows.
+NORM_CHUNK_BYTES = 256 << 20
+
+
+def _norm_rows(x, scale, bias):
+    """One chunk of ``_Norm``'s forward: (y in fp32, rsqrt, mean or None),
+    the plain formulas' ops in their order."""
     xf = x.float()
-    if cfg.norm == "layernorm":
-        mu = xf.mean(-1, keepdim=True)
-        var = xf.var(-1, unbiased=False, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + 1e-6)
-        y = y * p["scale"] + p["bias"]
-    else:  # rmsnorm: x * rsqrt(ms + eps) * scale (not 1 + scale)
+    if bias is None:
         ms = xf.square().mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + 1e-6) * p["scale"]
-    return y.to(x.dtype)
+        r = torch.rsqrt(ms + 1e-6)
+        return xf * r * scale, r, None
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    r = torch.rsqrt(var + 1e-6)
+    return (xf - mu) * r * scale + bias, r, mu
+
+
+def _norm_grad_rows(x, g, r, mu, scale):
+    """One chunk of ``_Norm``'s backward: (dx in fp32, its rows' sums of
+    the scale's and the bias's gradients)."""
+    xhat = (x.float() if mu is None else x.float() - mu) * r
+    gf = g.float()
+    gs = gf * scale
+    dx = gs - xhat * (gs * xhat).mean(-1, keepdim=True)
+    if mu is not None:
+        dx -= gs.mean(-1, keepdim=True)
+    return dx.mul_(r), (gf * xhat).sum(0), gf.sum(0)
+
+
+class _Norm(torch.autograd.Function):
+    """RMSNorm (``bias`` None: x · rsqrt(ms + eps) · scale, not 1 + scale)
+    or LayerNorm of x (..., d) over d in fp32, returned in x's dtype, in
+    chunks of rows (``ref.spans``). It saves x in its own dtype and each
+    row's rsqrt (and mean), never an fp32 tensor of x's shape, and its
+    backward is the formulas' gradient written out chunk by chunk:
+    dx = r·(gs − mean(gs) − x̂·mean(gs·x̂)) with gs = g·scale (no mean(gs)
+    for RMSNorm). The forward is the plain formulas' ops in their order."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias):
+        d = x.shape[-1]
+        x2 = x.reshape(-1, d)
+        y = torch.empty_like(x2)
+        r = x2.new_empty((len(x2), 1), dtype=torch.float32)
+        mu = None if bias is None else torch.empty_like(r)
+        for r0, r1 in _norm_spans(len(x2), d):
+            y[r0:r1], r[r0:r1], m = _norm_rows(x2[r0:r1], scale, bias)
+            if mu is not None:
+                mu[r0:r1] = m
+        ctx.save_for_backward(x, scale, r, mu)
+        return y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, r, mu = ctx.saved_tensors
+        d = x.shape[-1]
+        x2, g2 = x.reshape(-1, d), g.reshape(-1, d)
+        dx = torch.empty_like(x2)
+        dscale, dbias = torch.zeros_like(scale), torch.zeros_like(scale)
+        for r0, r1 in _norm_spans(len(x2), d):
+            dx[r0:r1], ds, db = _norm_grad_rows(
+                x2[r0:r1], g2[r0:r1], r[r0:r1],
+                None if mu is None else mu[r0:r1], scale)
+            dscale += ds
+            dbias += db
+        return dx.reshape(x.shape), dscale, None if mu is None else dbias
+
+
+def _norm_spans(rows: int, d: int):
+    """The chunks of rows, never one row alone (``ref.spans``)."""
+    return spans(rows, max(2, NORM_CHUNK_BYTES // (4 * d)))
+
+
+def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``cfg.norm`` of x over its last dim (``_Norm``); on a DTensor, on
+    each rank's rows, d whole, the parameters' gradients pending sums over
+    the mesh dims that split the rows."""
+    args = (x, p["scale"], p["bias"] if cfg.norm == "layernorm" else None)
+    if not isinstance(x, DTensor):
+        return _Norm.apply(*args)
+    rows = tuple(Replicate() if q.is_partial() or q == Shard(x.ndim - 1)
+                 else q for q in x.placements)
+    whole = (Replicate(),) * len(rows)
+    summed = tuple(Partial() if isinstance(q, Shard) else q for q in rows)
+    dt = [isinstance(a, DTensor) for a in args[1:]]
+    local_map_calls["norm"] += 1
+    # one output: its placements as a list (a tuple means one a value)
+    return map_local(_Norm.apply, list(rows),
+                     (rows, *(whole if d else None for d in dt)),
+                     x.device_mesh,
+                     (rows, *(summed if d else None for d in dt)))(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,7 @@ from .layers import (Params, _weak, apply_mlp, apply_norm, attention_block,
                      dtype_of, embed_init, gate_output, init_attention,
                      init_kv_cache, init_mlp, init_norm, mha_logits_to_out,
                      project_heads, project_out)
+from .loss import cross_entropy
 from .moe import apply_moe, init_moe
 
 Batch = Dict[str, torch.Tensor]
@@ -493,62 +494,14 @@ def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.where(valid, logits, neg)
 
 
-class _LogSumExp(torch.autograd.Function):
-    """``torch.logsumexp`` over the last dim (finite inputs), in ops that
-    keep a DTensor's shards of that dim (DTensor gathers them whole for
-    ``logsumexp``): the same ops in the same order, and its backward."""
-
-    @staticmethod
-    def forward(ctx, x):
-        m = x.amax(-1, keepdim=True)
-        out = (torch.log(torch.exp(x - m).sum(-1, keepdim=True)) + m)[..., 0]
-        ctx.save_for_backward(x, out)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        x, out = ctx.saved_tensors
-        return g[..., None] * (x - out[..., None]).exp()
-
-
-def _label_logit_on_shards(logits: DTensor, labels) -> DTensor:
-    """The label's logit (B, S, 1) of vocab-sharded logits (B, S, V): a
-    one-hot sum on each rank's vocab shard, a partial sum over the ranks
-    that split the vocab. DTensor backs ``gather``'s gradient with zeros
-    of the global logits' shape on every rank, and torch 2.11 widens a
-    sliced one-hot to the whole vocab."""
-    vocab_dim = Shard(logits.ndim - 1)
-    mesh, placements = logits.device_mesh, logits.placements
-    ids = constant_like(torch.arange(logits.shape[-1],
-                                     device=logits.device), logits)
-    def local(x, y, v):
-        return (x * (y[..., None].long() == v)).sum(-1, keepdim=True)
-
-    local_map_calls["label logit"] += 1
-    return map_local(
-        local, [Partial() if p == vocab_dim else p for p in placements],
-        (tuple(placements),
-         tuple(Replicate() if p == vocab_dim else p for p in placements),
-         tuple(Shard(0) if p == vocab_dim else Replicate()
-               for p in placements)), mesh)(logits, labels, ids)
-
-
 def loss_fn(params: Params, batch: Batch,
             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     logits, aux = forward(params, batch, cfg)
     labels = batch["labels"]
-    logits = logits.float()
-    if isinstance(logits, DTensor):
-        logz = _LogSumExp.apply(logits)
-        label_logit = _label_logit_on_shards(logits, labels)
-    else:
-        logz = torch.logsumexp(logits, dim=-1)
-        # the gathered logit keeps its trailing axis until it meets logz
-        label_logit = torch.gather(logits, -1, labels[..., None].long())
     mask: Optional[torch.Tensor] = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(labels, dtype=torch.float32)
-    nll = (logz[..., None] - label_logit)[..., 0]
+    nll = cross_entropy(logits, labels)
     ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     loss = ce + aux["aux_loss"] + aux["z_loss"]
     return loss, {"ce": ce, **aux}

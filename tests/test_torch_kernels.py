@@ -152,12 +152,19 @@ VJP_CASES = {
     "kv-slice": (2, 256, 2, 4, 64, 0, (128, 256), (1, 2)),
 }
 VJP_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# The same, with B·Kv (Kv after the layout's slice) of 6 or more (batch, kv
+# head) slices: at least 3 chunks of 2 under a lowered budget.
+CHUNK_CASES = {
+    "gqa-chunks": (3, 128, 8, 4, 64, 0, None, None),
+    "shard-offset-chunks": (3, 256, 4, 2, 64, 0, (128, 192), None),
+    "kv-slice-chunks": (3, 128, 4, 8, 64, 0, (64, 128), (2, 4)),
+}
 
 
-def _vjp_inputs(name, dtype):
+def _vjp_inputs(name, dtype, cases=VJP_CASES):
     """q (B, S, H, D), k, v (B, S, Kv, D) and a cotangent g of q's shape,
     from numpy, in both packages; the case's rows and kv slice."""
-    b, s, h, kv, d, window, rows, heads = VJP_CASES[name]
+    b, s, h, kv, d, window, rows, heads = cases[name]
     (jq, jk, jv), (q, k, v) = qkv(b, s, h, kv, d, dtype)
     g = np.random.default_rng(11).standard_normal((b, s, h, d))
     return ((jq, jk, jv, jnp.asarray(g, jnp.float32).astype(JNP[dtype])),
@@ -227,6 +234,55 @@ def test_flash_vjp_matches_the_references_vjp(name, dtype):
     pad = [(0, 0), (0, 0), (heads.start, jk.shape[2] - heads.stop), (0, 0)]
     want = [dq[:, rows], np.pad(dk, pad), np.pad(dv, pad)]
     _assert_grads_close([x.float().numpy() for x in got], want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(CHUNK_CASES))
+def test_flash_vjp_in_chunks_is_the_one_chunk_vjp(name, dtype, monkeypatch):
+    """``ref.flash_attention_vjp`` over chunks of 2 (batch, kv head)
+    slices, at least 3 of them, ``torch.equal`` to the same call in one
+    chunk: B and Kv are batch dims of its five products."""
+    from repro_torch.kernels import ref
+    _, (q, k, v, g), window, rows, heads = _vjp_inputs(name, dtype,
+                                                       CHUNK_CASES)
+    chunks = []
+    real = ref._vjp_slices
+    monkeypatch.setattr(ref, "_vjp_slices",
+                        lambda *a: chunks.append(a[0].shape) or real(*a))
+    monkeypatch.setattr(ref, "VJP_CHUNK_BYTES", 1 << 62)
+    whole = _port_vjp(q, k, v, g, window, rows, heads)
+    assert len(chunks) == 1
+    kv = heads.stop - heads.start
+    per_slice = 4 * (q.shape[2] // kv) * (rows.stop - rows.start) * k.shape[1]
+    monkeypatch.setattr(ref, "VJP_CHUNK_BYTES", 2 * per_slice)
+    del chunks[:]
+    got = _port_vjp(q, k, v, g, window, rows, heads)
+    assert len(chunks) >= 3
+    assert all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(got, whole))
+
+
+def test_starcoder2_two_layers_hold_no_whole_fp32_score_tensor():
+    """starcoder2-7b cut to 2 layers at ``train_4k`` on 16 x 16 (256 fake
+    ranks): no fp32 tensor of a whole (16, 4, 9, 256, 4096) P, dP or dS
+    (the VJP's chunks), nor of the residual's local (16, 4096, 4608) (the
+    norms' chunks), is live at the peak, and the FLOPs hold."""
+    from repro_torch.configs import SHAPES, get_config, get_optimizer_name
+    from repro_torch.launch import dryrun
+    cfg = get_config("starcoder2-7b").replace(n_layers=2,
+                                              use_flash_kernel=True)
+    with dryrun.fake_process_group(256):
+        mesh = dryrun.make_production_mesh(device_type="cpu")
+        c = dryrun.trace_step(cfg, SHAPES["train_4k"], mesh,
+                              get_optimizer_name("starcoder2-7b"))["counts"]
+    print(f"\nstarcoder2-7b, 2 layers, train_4k 16x16: peak "
+          f"{c.peak_bytes / 2**30:.2f} GiB; largest live at the peak: "
+          f"{c.peak_tensors}")
+    assert f"{c.flops:.4e}" == "2.2342e+13"
+    residual, scores = 4 * 16 * 4096 * 4608, 4 * 16 * 4 * 9 * 256 * 4096
+    assert residual < scores
+    assert all(t["bytes"] < residual for t in c.peak_tensors
+               if t["dtype"] == "torch.float32")
 
 
 def test_flash_backward_counts_five_products():

@@ -48,6 +48,74 @@ def test_apply_norm(norm):
     close(got, want)
 
 
+def _plain_norm(p, x, norm):
+    """The norms' formulas under autograd, whole."""
+    xf = x.float()
+    if norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, unbiased=False, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-6) * p["scale"] + p["bias"]
+    else:
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6) \
+            * p["scale"]
+    return y.to(x.dtype)
+
+
+def _norm_case(norm, dtype, monkeypatch):
+    """x (3, 10, 64) in ``dtype``, the parameters, a cotangent, the config;
+    the norms' budget lowered to 4 rows a chunk (8 chunks)."""
+    _, tc = both({"norm": norm})
+    x, scale, bias, g = arrays((3, 10, 64), (64,), (64,), (3, 10, 64),
+                               seed=5)
+    p = {"scale": scale, "bias": bias} if norm == "layernorm" \
+        else {"scale": scale}
+    monkeypatch.setattr(tl, "NORM_CHUNK_BYTES", 4 * 4 * 64)
+    assert len(tl._norm_spans(30, 64)) >= 3
+    return (p, torch.from_numpy(x).to(dtype), torch.from_numpy(g).to(dtype),
+            tc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
+def test_norm_in_row_chunks_is_the_plain_formulas(norm, dtype, monkeypatch):
+    """The forward ``torch.equal`` to the whole formulas; each gradient
+    (x, scale, bias) within 1e-6 of its norm of autograd's, x's in bf16
+    within one bf16 rounding (2^-8) of it: the fp32 values it rounds differ
+    in their last bits."""
+    p, x, g, tc = _norm_case(norm, dtype, monkeypatch)
+    got, want = ([t.requires_grad_() for t in
+                  [x.clone()] + [torch.from_numpy(v) for v in p.values()]]
+                 for _ in range(2))
+    y = tl.apply_norm(dict(zip(p, got[1:])), got[0], tc)
+    y0 = _plain_norm(dict(zip(p, want[1:])), want[0], norm)
+    assert y.dtype == dtype and torch.equal(y, y0)
+    for a, b in zip(torch.autograd.grad(y, got, g),
+                    torch.autograd.grad(y0, want, g)):
+        assert a.dtype == b.dtype
+        tol = 2 ** -8 if a.dtype == torch.bfloat16 else 1e-6
+        a, b = a.float(), b.float()
+        assert (a - b).norm() <= tol * b.norm()
+
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
+def test_norm_gradients_match_the_references(norm, monkeypatch):
+    """x's and the parameters' gradients, in row chunks, against
+    ``jax.vjp`` of the JAX package's ``apply_norm``."""
+    p, x, g, tc = _norm_case(norm, torch.float32, monkeypatch)
+    jc, _ = both({"norm": norm})
+    _, vjp = jax.vjp(lambda p, x: jl.apply_norm(p, x, jc),
+                     jax.tree_util.tree_map(jnp.asarray, p),
+                     jnp.asarray(x.numpy()))
+    jp, jx = vjp(jnp.asarray(g.numpy()))
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    xt = x.clone().requires_grad_()
+    grads = torch.autograd.grad(tl.apply_norm(tp, xt, tc), [xt, *tp.values()],
+                                g)
+    close(grads[0], jx)
+    for got, k in zip(grads[1:], tp):
+        close(got, jp[k], tol=1e-4)
+
+
 def test_apply_rope():
     (x,) = arrays((2, 16, 4, 16))
     pos = np.arange(16)[None, :]
