@@ -225,8 +225,9 @@ for each source, all started together), then
           ``max_memory_allocated`` (the ratio printed);
        b. the production cells gemma-7b ``train_4k``, ``prefill_32k`` and
           ``decode_32k`` on 16 x 16, gemma-7b ``train_4k`` on 2 x 16 x 16,
-          arctic-480b, llama-3.2-vision-90b and phi4-mini-3.8b ``train_4k``
-          on 16 x 16 through ``dryrun_cell``, four cells at a time in
+          arctic-480b, llama-3.2-vision-90b, phi4-mini-3.8b and
+          starcoder2-7b ``train_4k`` on 16 x 16 through ``dryrun_cell``,
+          four cells at a time in
           spawned processes, read in this order: each ``ok``, with its bytes
           and FLOPs a device, collective wire bytes by kind, the three
           roofline terms under the H100 SXM5 constants, the bottleneck,
@@ -240,14 +241,18 @@ for each source, all started together), then
           cells of phi4-mini-3.8b, deepseek-moe-16b, llama-3.2-vision-90b,
           recurrentgemma-2b, whisper-small and xlstm-350m. Every row
           beside its last accepted card counts (``CARD_BEFORE``): FLOPs
-          equal at 4 digits; bytes at most 1% above; wire bytes by kind
-          printed beside; arctic-480b at most 70.0 GiB (under an 80 GB
-          card's 74.5), its FLOPs under 1.0e15 and its all-gather plus
-          reduce-scatter wire bytes under 1.571e12, llama-3.2-vision-90b
-          at most 115 GiB, phi4-mini-3.8b at most 18.0 GiB. Each 16 x 16
-          train cell beside the reference's counts (``REFERENCE_TRAIN``):
-          deepseek's FLOPs at most 1.10x and its bytes at most the
-          reference's, phi4-mini's FLOPs at most 1.03x. Each decode cell
+          equal at 4 digits (to the CPU route's, ``CPU_ROUTE_FLOPS``,
+          where this tree moved them or the card has none); bytes at most
+          1% above; wire bytes by kind printed beside; arctic-480b at most
+          70.0 GiB (under an 80 GB card's 74.5), its FLOPs under 1.0e15
+          and its all-gather plus reduce-scatter wire bytes under
+          1.571e12, llama-3.2-vision-90b at most 115 GiB, phi4-mini-3.8b
+          and starcoder2-7b at most the reference's 12.85 and 16.52 GiB.
+          Each 16 x 16 train cell beside the reference's counts
+          (``REFERENCE_TRAIN``): its all-gather wire bytes at most the
+          reference's; deepseek's FLOPs at most 1.025x and its bytes at
+          most the reference's, phi4-mini's FLOPs at most 1.03x. Each
+          decode cell
           beside the reference's counts (``REFERENCE_DECODE``): bytes at
           most the reference's, wire bytes at most 1.5x, FLOPs within 10%
           (phi4-mini 2%, gemma-7b equal at 4 digits), and gemma-7b's
@@ -521,8 +526,10 @@ DRYRUN_CELLS = [        # 13b: (arch, shape, multi_pod)
     ("gemma-7b", "decode_32k", False), ("gemma-7b", "train_4k", True),
     ("arctic-480b", "train_4k", False),
     ("llama-3.2-vision-90b", "train_4k", False),
-    # 24 heads over model's 16: q over the sequence, as arctic-480b's 56
+    # 24 heads over model's 16: q over the sequence, as arctic-480b's 56,
+    # and each remat group's input saved as 1/16 (as starcoder2-7b's 36)
     ("phi4-mini-3.8b", "train_4k", False),
+    ("starcoder2-7b", "train_4k", False),
     # the sLSTM / mLSTM time loop: traced at S = 16 and 32, extrapolated
     (XLSTM, "train_4k", False),
     # 64 routed experts over model's 16: dispatch, combine, experts and the
@@ -540,33 +547,34 @@ DRYRUN_CELLS = [        # 13b: (arch, shape, multi_pod)
     # their weights where they lie and move the tokens
     (XLSTM, "decode_32k", False)]
 # 13b: every row's last accepted counts a device on the card (NVIDIA H100
-# 80GB HBM3): GiB, FLOPs, collective wire bytes by kind. Each row's FLOPs
-# equal at 4 digits, its bytes at most ``BYTES_SLACK`` above; its wire
-# bytes printed beside, ungated.
+# 80GB HBM3): GiB, FLOPs, collective wire bytes by kind. Each row's
+# FLOPs equal at 4 digits (to ``CPU_ROUTE_FLOPS`` where it has a count
+# there), its bytes at most ``BYTES_SLACK`` above; its wire bytes printed
+# beside, ungated.
 CARD_BEFORE = {
-    ("gemma-7b", "train_4k", False): (30.31, 2.9063e14, {
+    ("gemma-7b", "train_4k", False): (17.72, 2.9063e14, {
         "all-gather": 2.423e9, "all-reduce": 1.080e11, "all-to-all": 5.161e6,
         "reduce-scatter": 1.185e9}),
-    ("gemma-7b", "prefill_32k", False): (3.74, 1.3151e14, {
+    ("gemma-7b", "prefill_32k", False): (3.17, 1.3151e14, {
         "all-gather": 1.185e9, "all-reduce": 4.379e10}),
     ("gemma-7b", "decode_32k", False): (7.87, 1.6054e10, {
         "all-gather": 1.006e9, "all-reduce": 1.228e7, "all-to-all": 9.216e4}),
-    ("gemma-7b", "train_4k", True): (16.31, 1.4532e14, {
+    ("gemma-7b", "train_4k", True): (10.14, 1.4532e14, {
         "all-gather": 2.423e9, "all-reduce": 5.526e10, "all-to-all": 5.161e6,
         "reduce-scatter": 1.185e9}),
-    ("arctic-480b", "train_4k", False): (63.51, 7.2701e14, {
+    ("arctic-480b", "train_4k", False): (56.51, 7.2701e14, {
         "all-gather": 6.105e11, "all-reduce": 1.303e11, "all-to-all": 2.26e10,
         "reduce-scatter": 1.464e11}),
-    ("llama-3.2-vision-90b", "train_4k", False): (107.79, 3.5416e15, {
+    ("llama-3.2-vision-90b", "train_4k", False): (72.06, 3.5416e15, {
         "all-gather": 5.17e10, "all-reduce": 1.218e12, "all-to-all": 1.26e9,
         "reduce-scatter": 3.35e10}),
-    ("phi4-mini-3.8b", "train_4k", False): (27.08, 1.6850e14, {
+    ("phi4-mini-3.8b", "train_4k", False): (17.04, 1.6850e14, {
         "all-gather": 4.857e10, "all-reduce": 5.078e10, "all-to-all": 2.77e9,
         "reduce-scatter": 1.006e10}),
-    (XLSTM, "train_4k", False): (136.49, 7.3919e13, {
+    (XLSTM, "train_4k", False): (135.49, 7.3919e13, {
         "all-gather": 5.373e8, "all-reduce": 1.044e9, "all-to-all": 5.898e6,
         "reduce-scatter": 2.542e8}),
-    ("deepseek-moe-16b", "train_4k", False): (22.68, 1.3732e14, {
+    ("deepseek-moe-16b", "train_4k", False): (20.68, 1.3732e14, {
         "all-gather": 3.377e11, "all-reduce": 7.206e10, "all-to-all": 1.118e10,
         "reduce-scatter": 8.937e10}),
     ("phi4-mini-3.8b", "decode_32k", False): (2.51, 1.4809e10, {
@@ -587,30 +595,41 @@ CARD_BEFORE = {
         "all-gather": 1.242e7, "all-reduce": 5.960e6, "all-to-all": 9.523e5,
         "reduce-scatter": 2.359e7})}
 BYTES_SLACK = 1.01
-# 13b: absolute limits a device. arctic-480b, llama-3.2-vision-90b and
-# phi4-mini-3.8b in GiB (arctic's under an 80 GB card's 74.5; phi4's since
-# its loss holds no whole fp32 logits tensor); arctic's FLOPs, since its MoE
-# computes only the rank's experts; arctic's all-gather plus reduce-scatter
-# wire bytes, half of what they were before the sharded step stopped
-# building whole global tensors on each rank.
+# 13b: FLOPs a device on the CPU route (``python -m
+# repro_torch.launch.dryrun --device cpu``) of the rows this tree moved or
+# the card has not traced: deepseek-moe-16b's remat replay skips the MoE's
+# combine product and runs the shared experts' output product instead
+# (``moe.apply_moe``); starcoder2-7b's row is new. Each such row's FLOPs
+# equal these at 4 digits, and its bytes are held to the limits alone.
+CPU_ROUTE_FLOPS = {("deepseek-moe-16b", "train_4k", False): 1.3503e14,
+                   ("starcoder2-7b", "train_4k", False): 2.7398e14}
+# 13b: absolute limits a device. arctic-480b, llama-3.2-vision-90b,
+# phi4-mini-3.8b and starcoder2-7b in GiB (arctic's under an 80 GB card's
+# 74.5; phi4's and starcoder2's the reference's, since each remat group
+# saves 1/16 of its input, as XLA's compile does); arctic's FLOPs, since
+# its MoE computes only the rank's experts; arctic's all-gather plus
+# reduce-scatter wire bytes, half of what they were before the sharded
+# step stopped building whole global tensors on each rank.
 DRYRUN_LIMIT_GIB = {"arctic-480b": 70.0, "llama-3.2-vision-90b": 115.0,
-                    "phi4-mini-3.8b": 18.0}
+                    "phi4-mini-3.8b": 12.85, "starcoder2-7b": 16.52}
 MOE_FLOP_LIMIT = {"arctic-480b": 1.0e15}
 GATHER_SCATTER_LIMIT = {"arctic-480b": (1.846e12 + 1.296e12) / 2}
 # 13b train: the reference's counts a device on 16 x 16 (XLA's compile for
-# 256 host devices, Auto axes): GiB, FLOPs. Each 16 x 16 train row prints
-# its own beside them, its FLOPs at most ``TRAIN_RATIO`` times the
-# reference's where it has one: deepseek-moe-16b's (the flash VJP's
-# recomputed logits and remat's dead combine product,
-# tests/test_torch_moe_shards.py), its bytes under the reference's too,
-# and phi4-mini-3.8b's (the recomputed logits alone: its k and v products
-# run where XLA's do).
-REFERENCE_TRAIN = {"deepseek-moe-16b": (37.09, 1.3179e14),
-                   "arctic-480b": (57.86, 7.1333e14),
-                   "gemma-7b": (36.64, 2.8678e14),
-                   "phi4-mini-3.8b": (12.85, 1.6520e14),
-                   "llama-3.2-vision-90b": (156.68, 3.5035e15)}
-TRAIN_RATIO = {"deepseek-moe-16b": 1.10, "phi4-mini-3.8b": 1.03}
+# 256 host devices, Auto axes): GiB, FLOPs, all-gather wire bytes. Each
+# 16 x 16 train row prints its own beside them, its all-gather wire bytes at
+# most the reference's (a saved slice is gathered once for its replay), its
+# FLOPs at most ``TRAIN_RATIO`` times the reference's where it has one:
+# deepseek-moe-16b's (the flash VJP's recomputed logits and remat's dead
+# shared-experts output product, tests/test_torch_moe_shards.py), its bytes
+# under the reference's too, and phi4-mini-3.8b's (the recomputed logits
+# alone: its k and v products run where XLA's do).
+REFERENCE_TRAIN = {"deepseek-moe-16b": (37.09, 1.3179e14, 6.893e11),
+                   "arctic-480b": (57.86, 7.1333e14, 1.493e12),
+                   "gemma-7b": (36.64, 2.8678e14, 3.822e9),
+                   "phi4-mini-3.8b": (12.85, 1.6520e14, 1.706e11),
+                   "starcoder2-7b": (16.52, 2.6904e14, 2.442e11),
+                   "llama-3.2-vision-90b": (156.68, 3.5035e15, 9.341e10)}
+TRAIN_RATIO = {"deepseek-moe-16b": 1.025, "phi4-mini-3.8b": 1.03}
 # 13b decode: the reference's ``decode_32k`` counts a device on 16 x 16 (XLA's
 # compile for 256 host devices, the mesh's axes ``AxisType.Auto``): GiB,
 # FLOPs, collective wire bytes. Each decode cell holds its bytes at most the
@@ -2928,14 +2947,20 @@ def production_cell_row(arch: str, shape: str, multi_pod: bool,
 
 def reference_train_row(head: str, arch: str, rec: dict) -> None:
     """13b: a 16 x 16 ``train_4k`` cell beside the reference's counts
-    (``REFERENCE_TRAIN``), its FLOPs ratio held to ``TRAIN_RATIO`` where it
-    has one; deepseek-moe-16b's bytes under the reference's."""
+    (``REFERENCE_TRAIN``), its all-gather wire bytes at most the
+    reference's, its FLOPs ratio held to ``TRAIN_RATIO`` where it has one;
+    deepseek-moe-16b's bytes under the reference's."""
     gib = rec["memory"]["total_bytes_per_device"] / 2**30
     flops = rec["roofline"]["flops"]
+    gathered = rec["collectives"]["bytes_by_kind"].get("all-gather", 0)
     ref = REFERENCE_TRAIN[arch]
-    print(f"{head}: {gib:.2f} GiB, {flops:.4e} FLOPs a device; the "
-          f"reference's {ref[0]:.2f} GiB, {ref[1]:.4e} (FLOPs ratio "
-          f"{flops / ref[1]:.4f})", flush=True)
+    print(f"{head}: {gib:.2f} GiB, {flops:.4e} FLOPs, {gathered:.4e} "
+          f"all-gather wire bytes a device; the reference's {ref[0]:.2f} "
+          f"GiB, {ref[1]:.4e}, {ref[2]:.4e} (FLOPs ratio "
+          f"{flops / ref[1]:.4f}, all-gather ratio {gathered / ref[2]:.4f})",
+          flush=True)
+    require(gathered <= ref[2],
+            f"{head}: all-gather wire bytes over the reference's")
     if arch in TRAIN_RATIO:
         require(flops <= TRAIN_RATIO[arch] * ref[1],
                 f"{head}: FLOPs over {TRAIN_RATIO[arch]}x the reference's")
@@ -2953,16 +2978,20 @@ def card_before_row(head: str, cell: tuple, rec: dict) -> None:
     gib = rec["memory"]["total_bytes_per_device"] / 2**30
     flops = rec["roofline"]["flops"]
     coll = rec["collectives"]["bytes_by_kind"]
-    gib0, flops0, coll0 = CARD_BEFORE[cell]
+    gib0, flops0, coll0 = CARD_BEFORE.get(cell, (None, None, {}))
+    flops0 = CPU_ROUTE_FLOPS.get(cell, flops0)
     print(f"{head}: {gib:.2f} GiB, {flops:.4e} FLOPs a device; before "
-          f"{gib0:.2f} GiB, {flops0:.4e} (FLOPs ratio {flops / flops0:.4f}, "
-          f"bytes ratio {gib / gib0:.4f}); wire bytes " + ", ".join(
+          + (f"{gib0:.2f} GiB" if gib0 else "no card count")
+          + f", {flops0:.4e} (FLOPs ratio {flops / flops0:.4f}"
+          + (f", bytes ratio {gib / gib0:.4f}" if gib0 else "")
+          + "); wire bytes " + ", ".join(
               f"{k} {coll.get(k, 0):.4e} (before {coll0.get(k, 0):.4e})"
               for k in sorted(set(coll) | set(coll0))), flush=True)
     require(f"{flops:.4e}" == f"{flops0:.4e}",
             f"{head}: FLOPs not as before")
-    require(round(gib, 2) <= BYTES_SLACK * gib0,
-            f"{head}: bytes over {BYTES_SLACK}x before")
+    if gib0:
+        require(round(gib, 2) <= BYTES_SLACK * gib0,
+                f"{head}: bytes over {BYTES_SLACK}x before")
     if arch in DRYRUN_LIMIT_GIB:
         require(gib <= DRYRUN_LIMIT_GIB[arch],
                 f"{head}: above {DRYRUN_LIMIT_GIB[arch]} GiB a device")

@@ -223,9 +223,17 @@ def apply_moe(p: Params, x: torch.Tensor,
     h = F.silu(gte) * h
     eout = einsum("necf,efd->necd", h, w["wo"].to(dt))
     eout = shard(eout, spec)
+    # A remat replay runs up to the last op that saves a tensor, and stops
+    # as that op saves its inputs, before its product. Of the output
+    # products, whose outputs no backward reads (XLA drops them as dead),
+    # all but the last run in the replay, so the costlier runs last: the
+    # combine after the shared experts' (deepseek-moe-16b: 1.29e11 against
+    # 4.72e10 FLOPs a device and layer, train_4k on 16 x 16); arctic-480b's
+    # dense residual FFN after the combine (2.86e11 against 1.50e11).
+    shared = apply_mlp(p["shared"], x, cfg) if "shared" in p else None
     out = einsum("necd,ngec->ngd", eout, combine.to(dt))
 
     out = out.reshape(b, s, d)
-    if "shared" in p:
-        out = out + apply_mlp(p["shared"], x, cfg)
+    if shared is not None:
+        out = out + shared
     return out, {"aux_loss": aux_loss, "z_loss": z_loss, "expert_load": me}

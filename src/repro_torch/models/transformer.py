@@ -30,6 +30,7 @@ passes each state once.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Tuple
 
@@ -42,7 +43,8 @@ from repro_torch.device import require_device
 from repro_torch.parallel.sharding import (constant_like, einsum,
                                            local_map_calls, map_local,
                                            redistribute, reduce_partials,
-                                           replicate_dim, shard)
+                                           replicate_dim, role_size,
+                                           saved_over, shard)
 from repro_torch.tree import leaves, tree_map
 from . import recurrent as rec
 from .config import ModelConfig
@@ -140,6 +142,24 @@ def _apply_moe_ffn(p: Params, x: torch.Tensor,
     return y, aux
 
 
+def _checkpoint(fn, first: str, cfg: ModelConfig, x: torch.Tensor, *args):
+    """``checkpoint(fn, x, *args)`` of a remat group whose first block is
+    ``first``. Where that block's attention takes q over the sequence (its
+    heads do not divide TP: ``layers._qkv``), the checkpoint saves 1/TP of
+    x and gathers it whole for the replay (``sharding.saved_over``), as
+    XLA's compile of the reference saves the scan's residuals: a slice for
+    phi4-mini-3.8b, starcoder2-7b, arctic-480b and whisper-small's decoder,
+    whole for the archs whose heads divide TP or whose groups open with a
+    recurrence. XLA's slice is the sequence's; the port's is the rank's
+    batch rows, the same bytes, which come back whole in one all-gather,
+    where a sequence slice takes an all-to-all to dim 0 first
+    (``sharding.redistribution_plan``)."""
+    sliced = (first in _SELF_ATTN + ("xattn",)
+              and cfg.n_heads % max(role_size("tp"), 1) > 0)
+    with saved_over(x, 0, "sp") if sliced else contextlib.nullcontext():
+        return checkpoint(fn, x, *args, use_reentrant=False)
+
+
 # ---------------------------------------------------------------------------
 # Stacked layers
 # ---------------------------------------------------------------------------
@@ -200,7 +220,7 @@ def _run_encoder(p: Params, frames: torch.Tensor,
         return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
 
     for lp in _unstack(p["layers"], cfg.encoder_layers):
-        x = (checkpoint(body, x, lp, use_reentrant=False) if cfg.remat
+        x = (_checkpoint(body, "attn", cfg, x, lp) if cfg.remat
              else body(x, lp))
     return apply_norm(p["final_norm"], x, cfg)
 
@@ -462,7 +482,8 @@ def forward(params: Params, batch: Batch,
     if cfg.n_groups > 0:
         for gp in _unstack(params["scan"], cfg.n_groups):
             if cfg.remat:
-                x, a = checkpoint(group_body, x, gp, enc, use_reentrant=False)
+                x, a = _checkpoint(group_body, cfg.pattern[0], cfg, x, gp,
+                                   enc)
             else:
                 x, a = group_body(x, gp, enc)
             aux_total = {k: aux_total[k] + a[k] for k in aux_total}

@@ -26,9 +26,11 @@ builds a tensor larger than the move's ends.
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 import re
 import types
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -442,6 +444,52 @@ def shard_over(x, dim: int, role: str):
     it gives None for passes through."""
     placements = placements_over(x, dim, role)
     return x if placements is None else redistribute(x, placements)
+
+
+@dataclass
+class _Slice:
+    """A saved DTensor kept as its rank's slice (:func:`saved_over`)."""
+    part: DTensor
+    whole: Tuple[Placement, ...]
+    requires_grad: bool
+
+
+@contextlib.contextmanager
+def saved_over(x, dim: int, role: str):
+    """Within the block, autograd saves the DTensor ``x`` as its rank's
+    slice of tensor dim ``dim`` over ``role``'s mesh axes
+    (:func:`placements_over`: no data moves, a copy of 1/n of x's local
+    bytes) and gathers it back to x's placements when the saved tensor is
+    unpacked. A checkpoint's input so saved is whole in the first forward
+    and gathered once for the replay, as XLA keeps a scan's residuals. x
+    itself is not held. Where :func:`placements_over` gives None, or the
+    dim's shards would not be even, x is saved as it is."""
+    placements = placements_over(x, dim, role)
+    if placements is None or x.shape[dim] % math.prod(
+            n for n, p in zip(x.device_mesh.shape, placements)
+            if p == Shard(dim)):
+        yield
+        return
+    ref = weakref.ref(x)
+
+    def pack(t):
+        if t is not ref():
+            return t
+        with torch.no_grad():
+            part = redistribute(t, placements)
+            if part._local_tensor._is_view():   # a slice of x's storage
+                part = part.clone()
+        return _Slice(part, tuple(t.placements), t.requires_grad)
+
+    def unpack(saved):
+        if not isinstance(saved, _Slice):
+            return saved
+        with torch.no_grad():
+            t = redistribute(saved.part, saved.whole)
+        return t.requires_grad_(saved.requires_grad)
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+        yield
 
 
 def constant_like(t: torch.Tensor, ref):

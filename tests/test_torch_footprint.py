@@ -13,6 +13,10 @@
 * arctic-480b cut to one layer at ``train_4k`` on 16 x 16 (256 fake
   ranks, fake CPU tensors): the peak, FLOPs and the largest tensors live at
   the peak (``peak_tensors``), which the dry-run's record carries.
+* phi4-mini-3.8b and starcoder2-7b cut to 2 layers at ``train_4k`` on
+  16 x 16: each remat group saves 1/16 of its input, as XLA's compile of
+  the reference does; the live bytes at the forward's end, the peak, the
+  FLOPs and the all-gather wire bytes against the whole saves'.
 * The embedding on a (2, 2) mesh: each rank's output holds its own batch
   rows, and no tensor of the global batch's shape is built.
 """
@@ -282,6 +286,96 @@ def test_extrapolation_keeps_the_longer_traces_peak_tensors():
     b = fc.DeviceCounts(peak_bytes=20, peak_tensors=[{"bytes": 2}])
     out = dryrun.extrapolate(a, b, 3)
     assert out.peak_bytes == 40 and out.peak_tensors == [{"bytes": 2}]
+
+
+# phi4-mini-3.8b and starcoder2-7b cut to 2 layers at ``train_4k`` on
+# 16 x 16 (fake CPU tensors), while each checkpointed group saved its whole
+# input: the live local bytes at the end of the forward, the peak, FLOPs
+# and all-gather wire bytes a device (the FLOPs stay)
+WHOLE_SAVES = {   # arch: (forward's end, peak, FLOPs, all-gather)
+    "phi4-mini-3.8b": (3467910676, 5377142932, 24700356919296, 5994516480),
+    "starcoder2-7b": (3077271572, 5563703316, 22342419873792, 7839989760),
+}
+
+
+@pytest.fixture(scope="module")
+def odd_heads_two_layers():
+    """Each ``WHOLE_SAVES`` cut's counts, and the live bytes and the live
+    (B/16, S, d) bf16 storages at the end of its forward (as ``loss_fn``
+    returns, before the backward)."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    loss_fn, ends = tt.loss_fn, []
+
+    def at_forward_end(params, batch, cfg):
+        out = loss_fn(params, batch, cfg)
+        counter = next(m for m in _get_current_dispatch_mode_stack()
+                       if isinstance(m, fc.DeviceCounter))
+        whole = (SHAPES["train_4k"].global_batch // 16,
+                 SHAPES["train_4k"].seq_len, cfg.d_model)
+        ends.append((counter._live_bytes, sum(
+            1 for shape, dtype, _ in counter._where.values()
+            if shape == whole and dtype == "torch.bfloat16")))
+        return out
+
+    out = {}
+    tt.loss_fn = at_forward_end
+    try:
+        for arch in WHOLE_SAVES:
+            cfg = get_config(arch).replace(n_layers=2, use_flash_kernel=True)
+            with dryrun.fake_process_group(256):
+                mesh = dryrun.make_production_mesh(device_type="cpu")
+                counts = dryrun.trace_step(cfg, SHAPES["train_4k"], mesh,
+                                           get_optimizer_name(arch))["counts"]
+            out[arch] = (cfg, counts, ends[-1])
+    finally:
+        tt.loss_fn = loss_fn
+    return out
+
+
+def _group_input_bytes(cfg) -> int:
+    sp = SHAPES["train_4k"]
+    return sp.global_batch // 16 * sp.seq_len * cfg.d_model * 2
+
+
+@pytest.mark.parametrize("arch", sorted(WHOLE_SAVES))
+def test_remat_saves_a_slice_of_each_group_input(arch, odd_heads_two_layers):
+    """Heads that do not divide ``model`` (24, 36): each checkpointed group
+    saves 1/16 of its (16, 4096, d) bf16 input, as XLA's compile of the
+    reference saves its scan's residuals (``bf16[32,16,256,d]``). At the
+    forward's end the live bytes are the whole saves' less 15/16 of the
+    group inputs, and one whole input is live: the last group's output,
+    which the final norm saves."""
+    cfg, _, (live, whole) = odd_heads_two_layers[arch]
+    saved = cfg.n_groups * _group_input_bytes(cfg)
+    print(f"\n{arch}, 2 layers, train_4k 16x16: {live} B live at the "
+          f"forward's end ({WHOLE_SAVES[arch][0]} saving whole inputs)")
+    assert live == WHOLE_SAVES[arch][0] - saved * 15 // 16
+    assert whole == 1
+
+
+@pytest.mark.parametrize("arch", sorted(WHOLE_SAVES))
+def test_remat_slices_cost_one_gather_a_group(arch, odd_heads_two_layers):
+    """The slices keep the FLOPs, add one all-gather of 15/16 of each
+    group's input (for the replay), and lower the peak: phi4's by 15/16 of
+    the saved inputs (its peak stays at the forward's end, in the loss);
+    starcoder2's moves to the backward and falls by over a third of that.
+    No group input is among the five
+    largest tensors at the peak: at most one (16, 4096, d) bf16 tensor of
+    the model's, the last group's output or one of a replay."""
+    cfg, c, _ = odd_heads_two_layers[arch]
+    _, peak, flops, gathered = WHOLE_SAVES[arch]
+    gather = cfg.n_groups * _group_input_bytes(cfg) * 15 // 16
+    print(f"\n{arch}: peak {c.peak_bytes} (whole saves {peak}), all-gather "
+          f"{c.collectives.bytes_by_kind['all-gather']} ({gathered}); "
+          f"largest live at the peak: {c.peak_tensors}")
+    assert c.flops == flops
+    assert c.collectives.bytes_by_kind["all-gather"] == gathered + gather
+    assert c.peak_bytes <= peak - (gather if arch == "phi4-mini-3.8b"
+                                   else gather // 3)
+    whole = [16, SHAPES["train_4k"].seq_len, cfg.d_model]
+    assert sum(1 for t in c.peak_tensors
+               if t["shape"] == whole and t["dtype"] == "torch.bfloat16"
+               and t["site"].startswith("models/transformer.py:")) <= 1
 
 
 class _Shapes(fc.DeviceCounter):

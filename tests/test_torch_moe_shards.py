@@ -317,7 +317,8 @@ def test_smoke_moe_flops_a_device_match_the_reference(name, kind, runs):
 # devices, the mesh's axes made ``AxisType.Auto`` (under JAX 0.9's default
 # Explicit axes its decode cells raise): one JSON line a cell. Run it as
 # ``PYTHONPATH=src python tests/test_torch_moe_shards.py [--multi-pod]
-# ARCH:SHAPE ...``.
+# [--hlo DIR] ARCH:SHAPE ...``; with ``--hlo`` each cell's compiled HLO text
+# (what ``parse_hlo_profile`` reads) is written to ``DIR/ARCH_SHAPE.hlo``.
 REFERENCE_CELLS = """
 import json, os, sys
 devices = sys.argv[1]
@@ -334,10 +335,24 @@ def auto_mesh(shape, axes, **kw):
 
 
 jax.make_mesh = auto_mesh
-from repro.launch.dryrun import dryrun_cell
+import repro.launch.dryrun as dryrun
+hlo_dir = os.environ.get("REFERENCE_HLO_DIR")
+parse = dryrun.hs.parse_hlo_profile
+
+
+def write_hlo(text):
+    with open(os.path.join(hlo_dir, name + ".hlo"), "w") as f:
+        f.write(text)
+    return parse(text)
+
+
+if hlo_dir:
+    dryrun.hs.parse_hlo_profile = write_hlo
 for cell in sys.argv[2:]:
     arch, shape = cell.split(":")
-    r = dryrun_cell(arch, shape, multi_pod=devices == "512", verbose=False)
+    name = f"{arch}_{shape}"
+    r = dryrun.dryrun_cell(arch, shape, multi_pod=devices == "512",
+                           verbose=False)
     out = {"arch": arch, "shape": shape, "status": r["status"]}
     if r["status"] == "ok":
         out.update(flops=r["roofline"]["hlo_flops"],
@@ -348,12 +363,15 @@ for cell in sys.argv[2:]:
 """
 
 
-def reference_counts(cells, multi_pod: bool = False):
+def reference_counts(cells, multi_pod: bool = False, hlo_dir=None):
     """The reference's counts of ``cells`` ("arch:shape" each), one dict a
-    cell: FLOPs and wire bytes a device, GiB a device."""
+    cell: FLOPs and wire bytes a device, GiB a device; with ``hlo_dir``
+    each cell's compiled HLO text written there too."""
+    env = dict(os.environ, **({"REFERENCE_HLO_DIR": os.path.abspath(hlo_dir)}
+                              if hlo_dir else {}))
     run = subprocess.run([sys.executable, "-c", REFERENCE_CELLS,
                           "512" if multi_pod else "256", *cells], cwd=ROOT,
-                         capture_output=True, text=True, check=True)
+                         capture_output=True, text=True, check=True, env=env)
     return [json.loads(line) for line in run.stdout.splitlines()
             if line.startswith("{")]
 
@@ -417,11 +435,15 @@ def test_deepseek_train_flops_are_the_references_and_named_products(cells):
     * the flash op's plain VJP recomputes attention's logits product
       (u = 2·(B/16)·1·S·S·D; XLA's plain attention has none to redo; the
       VJP forms no output product);
-    * remat recomputes the combine product (2·n·g·4C·d), whose output no
-      backward reads: XLA drops it as dead, torch's checkpoint replays the
-      forward up to the last tensor the backward saves.
+    * remat recomputes the shared experts' output product
+      (2·(B/16)·S·d·F_shared/16), whose output no backward reads: XLA
+      drops it as dead, torch's checkpoint replays the forward up to the
+      last op that saves a tensor and stops as that op saves its inputs.
+      That op is the combine (``moe.apply_moe`` runs it after the shared
+      experts), whose product (2·n·g·4C·d, 2.7x the shared one) the replay
+      so skips.
 
-    Together under 1.10x the reference. The dispatch, the combine,
+    Together under 1.025x the reference. The dispatch, the combine,
     the experts and the router run on the rank's experts, as in XLA's."""
     cfg, c, _ = cells["deepseek-moe-16b", "train_4k"]
     sp, m = SHAPES["train_4k"], cfg.moe
@@ -431,12 +453,14 @@ def test_deepseek_train_flops_are_the_references_and_named_products(cells):
     flash = u
     combine = 2 * n * g * (m.num_experts // 16) * moe.capacity(cfg, g) \
         * cfg.d_model
+    shared = 2 * rows * cfg.d_model * (cfg.d_expert_eff * m.num_shared // 16)
     want = REFERENCE["deepseek-moe-16b", "train_4k"][1]
-    named = layers * (flash + combine)
+    named = layers * (flash + shared)
     print(f"\ndeepseek-moe-16b train_4k: FLOPs a device {c.flops:.6e} = "
-          f"reference {want:.6e} + {named:.6e} ({c.flops / want:.4f}x)")
+          f"reference {want:.6e} + {named:.6e} ({c.flops / want:.4f}x); "
+          f"the combine replayed before: {layers * combine:.6e}")
     assert c.flops == want + named
-    assert c.flops <= 1.10 * want
+    assert c.flops <= 1.025 * want
 
 
 def test_arctic_prefill_flops_are_under_the_limit(cells):
@@ -478,6 +502,8 @@ def test_no_collective_moves_the_slots(cell, cells):
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    for rec in reference_counts([a for a in args if a != "--multi-pod"],
-                                multi_pod="--multi-pod" in args):
+    hlo = args[args.index("--hlo") + 1] if "--hlo" in args else None
+    for rec in reference_counts(
+            [a for a in args if a not in ("--multi-pod", "--hlo", hlo)],
+            multi_pod="--multi-pod" in args, hlo_dir=hlo):
         print(json.dumps(rec))

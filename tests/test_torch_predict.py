@@ -33,7 +33,6 @@ from repro_torch.core.flop_count import (H100_SXM, GpuSpec, RooflineTerms,
 from repro_torch.kernels import ref
 from repro_torch.launch import whatif
 from repro_torch.launch.steps import make_train_step as port_train_step
-from repro_torch.models import moe as port_moe
 from repro_torch.models import transformer as port_tf
 from repro_torch.optim import make_optimizer as port_optimizer
 
@@ -171,20 +170,19 @@ def test_step_flops_match_the_compiled_jax_step(arch, flash):
     VJP's products are the same on both sides: the port's forms no output
     product P·V, which XLA drops from the reference's as dead.
 
-    An MoE block has one such gap of its own: the remat recompute ends at
-    the shared experts' (or the dense residual FFN's) last needed input,
-    which comes after the MoE's combine product ``necd,ngec->ngd``. That
-    product's output is dead there: XLA drops it, ``torch.utils.checkpoint``
-    computes it, 2·n·G·E·C·d FLOPs a layer.
+    An MoE block has one such gap of its own: the remat recompute ends as
+    the MoE's combine product ``necd,ngec->ngd``, the block's last op that
+    saves a tensor, saves its inputs; the shared experts' output product
+    runs before it (``moe.apply_moe``), and its output is dead there: XLA
+    drops it, ``torch.utils.checkpoint`` computes it, 2·B·S·d·F_shared
+    FLOPs a layer.
     """
     cfg, got = _port_step_flops(arch, flash)
     want = _jax_step_flops(arch, flash)
     if cfg.moe is not None:
-        t = 2 * S
-        _, g = port_moe.group_split(t, cfg.moe.group_size)
-        combine = 2 * t * cfg.moe.num_experts * port_moe.capacity(cfg, g) \
-            * cfg.d_model
-        want += cfg.n_layers * combine
+        shared = 2 * 2 * S * cfg.d_model * cfg.d_expert_eff \
+            * cfg.moe.num_shared
+        want += cfg.n_layers * shared
     if flash:
         u = 2 * 2 * cfg.n_heads * S * S * cfg.head_dim
         n_attn = sum(k == "attn" for k in cfg.pattern) * cfg.n_groups

@@ -9,11 +9,14 @@
 * Numerics: one gemma-7b smoke grad step and train step (fp32, 2 layers,
   B = 4, S = 64, AdamW) on a (2, 2) ("data", "model") mesh of 4 gloo ranks,
   against the reference's steps jitted with ``train_in_shardings`` on 4
-  forced host devices; and the kernels' DTensor sharding rules on those
-  ranks against the plain tensors' calls.
+  forced host devices; the same steps with remat on three heads (q over
+  the sequence), each checkpointed group saving 1/2 of its input on a
+  rank, against the reference's remat steps; and the kernels' DTensor
+  sharding rules on those ranks against the plain tensors' calls.
 """
 import dataclasses
 import functools
+import json
 import os
 import pathlib
 import subprocess
@@ -283,9 +286,14 @@ def test_a_dim_over_several_axes_keeps_the_mesh_order(meshes):
 
 ARCH, B, S, LR = "gemma-7b", 4, 64, 1e-3
 TIMEOUT_S = 240
+# The runs of the step, by the prefix of their keys: the smoke config as
+# it is, and with remat on three heads, which do not divide ``model``, so
+# that attention takes q over the sequence and each checkpointed group
+# saves 1/2 of its input (``transformer._checkpoint``).
+RUNS = {"": {}, "remat/": {"remat": True, "n_heads": 3, "n_kv": 1}}
 
 JAX_STEP = """
-import os, sys
+import json, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax, numpy as np
 sys.path.insert(0, "src")
@@ -295,37 +303,40 @@ from repro.launch.steps import (make_grad_step, make_train_step,
 from repro.optim import make_optimizer
 
 d = sys.argv[1]
-inp = np.load(os.path.join(d, "inputs.npz"))
-params = {}
-for key in inp.files:
-    if key.startswith("p/"):
-        *path, last = key[2:].split("/")
-        node = params
-        for k in path:
-            node = node.setdefault(k, {})
-        node[last] = inp[key]
-toks = inp["tokens"]
-batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-cfg = get_config("gemma-7b", smoke=True)
-opt = make_optimizer("adamw", lr=float(inp["lr"]))
 # the reference's steps constrain shardings as hints (Auto axes), where
 # this JAX's make_mesh defaults to Explicit axes
 mesh = jax.make_mesh((2, 2), ("data", "model"),
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
-(psh, osh, bsh), _, _ = train_in_shardings(cfg, opt, batch, mesh)
-params = jax.device_put(params, psh)
-batch = jax.device_put(batch, bsh)
-grads, _ = jax.jit(make_grad_step(cfg, mesh),
-                   in_shardings=(psh, bsh))(params, batch)
-state = jax.device_put(opt.init(params), osh)
-step = jax.jit(make_train_step(cfg, opt, mesh), in_shardings=(psh, osh, bsh))
-new, _, metrics = step(params, state, batch)
-out = {}
-for prefix, tree in (("g/", grads), ("p/", new)):
-    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
-    out.update({prefix + "/".join(k.key for k in path): np.asarray(x)
-                for path, x in flat})
-np.savez(os.path.join(d, "jax.npz"), loss=np.float32(metrics["loss"]), **out)
+for i, replace in enumerate(json.loads(sys.argv[2])):
+    inp = np.load(os.path.join(d, f"inputs{i}.npz"))
+    params = {}
+    for key in inp.files:
+        if key.startswith("p/"):
+            *path, last = key[2:].split("/")
+            node = params
+            for k in path:
+                node = node.setdefault(k, {})
+            node[last] = inp[key]
+    toks = inp["tokens"]
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    cfg = get_config("gemma-7b", smoke=True).replace(**replace)
+    opt = make_optimizer("adamw", lr=float(inp["lr"]))
+    (psh, osh, bsh), _, _ = train_in_shardings(cfg, opt, batch, mesh)
+    params = jax.device_put(params, psh)
+    batch = jax.device_put(batch, bsh)
+    grads, _ = jax.jit(make_grad_step(cfg, mesh),
+                       in_shardings=(psh, bsh))(params, batch)
+    state = jax.device_put(opt.init(params), osh)
+    step = jax.jit(make_train_step(cfg, opt, mesh),
+                   in_shardings=(psh, osh, bsh))
+    new, _, metrics = step(params, state, batch)
+    out = {}
+    for prefix, tree in (("g/", grads), ("p/", new)):
+        flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+        out.update({prefix + "/".join(k.key for k in path): np.asarray(x)
+                    for path, x in flat})
+    np.savez(os.path.join(d, f"jax{i}.npz"),
+             loss=np.float32(metrics["loss"]), **out)
 """
 
 FLASH_CASES = {   # name: ((H, Kv), q/k/v placements on ("data", "model"),
@@ -360,9 +371,10 @@ SCAN_CASES = {
 }
 
 
-def numpy_inputs():
-    """Smoke gemma-7b weights and a batch from numpy seed 0."""
-    cfg = get_config(ARCH, smoke=True)
+def numpy_inputs(replace=None):
+    """Smoke gemma-7b weights (its config with ``replace``) and a batch from
+    numpy seed 0."""
+    cfg = get_config(ARCH, smoke=True).replace(**(replace or {}))
     rng = np.random.default_rng(0)
     params = tree_map(lambda s: (0.1 * rng.standard_normal(s))
                       .astype(np.float32), tt.param_shapes(cfg))
@@ -370,15 +382,30 @@ def numpy_inputs():
     return cfg, params, tokens
 
 
-def _sharded_step(mesh) -> dict:
-    cfg, params, tokens = numpy_inputs()
+class _SavedSlices(sh._Slice):
+    """``sharding._Slice`` that records the local bytes of each slice a
+    checkpoint saves."""
+    seen = []
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.seen.append(self.part.to_local().untyped_storage().nbytes())
+
+
+def _sharded_step(mesh, replace) -> dict:
+    cfg, params, tokens = numpy_inputs(replace)
     opt = make_optimizer("adamw", lr=LR)
     batch = {"tokens": torch.from_numpy(tokens[:, :-1]),
              "labels": torch.from_numpy(tokens[:, 1:])}
     (psh, osh, bsh), _, _ = steps.train_in_shardings(cfg, opt, batch, mesh)
     tp = sh.distribute(params_from_numpy(params, "cpu"), psh)
     batch = sh.distribute(batch, bsh)
-    grads, _ = steps.make_grad_step(cfg, mesh)(tp, batch)
+    _SavedSlices.seen = []
+    saved, sh._Slice = sh._Slice, _SavedSlices
+    try:
+        grads, _ = steps.make_grad_step(cfg, mesh)(tp, batch)
+    finally:
+        sh._Slice = saved
     grads = {"g/" + path: x.full_tensor().numpy() for path, x in paths(grads)}
     state = opt.init(tp)
     tp, state, metrics = steps.make_train_step(cfg, opt, mesh)(
@@ -388,6 +415,7 @@ def _sharded_step(mesh) -> dict:
     placed += [isinstance(x, int) or x.placements == s.placements
                for x, s in zip(leaves(state), leaves(osh))]
     return {"loss": float(metrics["loss"]), "misplaced": placed.count(False),
+            "saved_bytes": np.array(_SavedSlices.seen, dtype=np.int64),
             **grads, **{"p/" + path: x.full_tensor().detach().numpy()
                for path, x in paths(tp)}}
 
@@ -480,7 +508,9 @@ def _rank_main(rank: int, world: int, d: str) -> None:
                             rank=rank, world_size=world)
     try:
         mesh = make_debug_mesh((2, 2), device_type="cpu")
-        found = {**_sharded_step(mesh), **_kernel_rules(mesh)}
+        found = {prefix + k: v for prefix, replace in RUNS.items()
+                 for k, v in _sharded_step(mesh, replace).items()}
+        found.update(_kernel_rules(mesh))
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -492,10 +522,12 @@ def sharded(tmp_path_factory):
     """(port, jax): what the 4 gloo ranks and the reference on 4 host
     devices found, run side by side."""
     d = str(tmp_path_factory.mktemp("sharded"))
-    _, params, tokens = numpy_inputs()
-    np.savez(os.path.join(d, "inputs.npz"), tokens=tokens, lr=LR,
-             **{"p/" + path: x for path, x in paths(params)})
-    ref_run = subprocess.Popen([sys.executable, "-c", JAX_STEP, d],
+    for i, replace in enumerate(RUNS.values()):
+        _, params, tokens = numpy_inputs(replace)
+        np.savez(os.path.join(d, f"inputs{i}.npz"), tokens=tokens, lr=LR,
+                 **{"p/" + path: x for path, x in paths(params)})
+    ref_run = subprocess.Popen([sys.executable, "-c", JAX_STEP, d,
+                                json.dumps(list(RUNS.values()))],
                                cwd=ROOT, stdout=subprocess.PIPE,
                                stderr=subprocess.PIPE, text=True)
     try:
@@ -511,8 +543,30 @@ def sharded(tmp_path_factory):
     finally:
         ref_run.kill()
     assert ref_run.returncode == 0, err[-3000:]
-    return (dict(np.load(os.path.join(d, "port.npz"))),
-            dict(np.load(os.path.join(d, "jax.npz"))))
+    want = {}
+    for i, prefix in enumerate(RUNS):
+        found = np.load(os.path.join(d, f"jax{i}.npz"))
+        want.update({prefix + k: found[k] for k in found.files})
+    return dict(np.load(os.path.join(d, "port.npz"))), want
+
+
+def _check_grads(port, want, prefix: str) -> None:
+    keys = sorted(k for k in want if k.startswith(prefix + "g/"))
+    assert keys and keys == sorted(k for k in port
+                                   if k.startswith(prefix + "g/"))
+    for k in keys:
+        scale = np.linalg.norm(want[k])
+        assert scale > 0, k
+        assert np.linalg.norm(port[k] - want[k]) <= 1e-4 * scale, k
+
+
+def _check_params(port, want, prefix: str) -> None:
+    keys = sorted(k for k in want if k.startswith(prefix + "p/"))
+    assert keys and keys == sorted(k for k in port
+                                   if k.startswith(prefix + "p/"))
+    for k in keys:
+        err = np.abs(port[k] - want[k])
+        assert (err <= 1e-4 * (1 + np.abs(want[k]))).all(), (k, err.max())
 
 
 def test_sharded_step_loss_matches_jax(sharded):
@@ -525,29 +579,47 @@ def test_sharded_grads_match_jax(sharded):
     leaf's norm: AdamW's first step moves each weight by about lr·sign(g)
     whatever g's scale, so the params alone would pass a gradient reduced
     twice, or summed where the mean is wanted."""
-    port, want = sharded
-    keys = sorted(k for k in want if k.startswith("g/"))
-    assert keys and keys == sorted(k for k in port if k.startswith("g/"))
-    for k in keys:
-        scale = np.linalg.norm(want[k])
-        assert scale > 0, k
-        assert np.linalg.norm(port[k] - want[k]) <= 1e-4 * scale, k
+    _check_grads(*sharded, "")
 
 
 def test_sharded_step_params_match_jax(sharded):
     """Every updated param within 1e-4 (1 + |x|): the card-vs-CPU bound of
     PERF.md section 2 (AdamW moves each weight by about the lr, 1e-3)."""
-    port, want = sharded
-    keys = sorted(k for k in want if k.startswith("p/"))
-    assert keys == sorted(k for k in port if k.startswith("p/"))
-    for k in keys:
-        err = np.abs(port[k] - want[k])
-        assert (err <= 1e-4 * (1 + np.abs(want[k]))).all(), (k, err.max())
+    _check_params(*sharded, "")
 
 
 def test_sharded_step_keeps_every_placement(sharded):
     port, _ = sharded
     assert int(port["misplaced"]) == 0
+
+
+def test_sharded_remat_step_loss_matches_jax(sharded):
+    """The ``remat/`` run: each group's input saved as 1/2 of its local
+    bytes and gathered for the replay; the reference's step with remat."""
+    port, want = sharded
+    np.testing.assert_allclose(port["remat/loss"], want["remat/loss"],
+                               rtol=1e-5)
+
+
+def test_sharded_remat_grads_match_jax(sharded):
+    _check_grads(*sharded, "remat/")
+
+
+def test_sharded_remat_step_params_match_jax(sharded):
+    _check_params(*sharded, "remat/")
+    assert int(sharded[0]["remat/misplaced"]) == 0
+
+
+def test_remat_saves_the_ranks_slice_of_each_group_input(sharded):
+    """With remat and q over the sequence, the grad step's checkpoint saves
+    each group's input (B/2, S, d) fp32 on a rank as its slice over
+    ``model``: 1/2 of those bytes, one a group. Without remat it saves
+    none."""
+    port, _ = sharded
+    cfg = get_config(ARCH, smoke=True).replace(**RUNS["remat/"])
+    x_bytes = B // 2 * S * cfg.d_model * 4
+    assert port["remat/saved_bytes"].tolist() == [x_bytes // 2] * cfg.n_groups
+    assert port["saved_bytes"].size == 0
 
 
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
