@@ -251,8 +251,10 @@ for each source, all started together), then
           Each 16 x 16 train cell beside the reference's counts
           (``REFERENCE_TRAIN``): its all-gather wire bytes at most the
           reference's; deepseek's FLOPs at most 1.025x and its bytes at
-          most the reference's, phi4-mini's FLOPs at most 1.03x. Each
-          decode cell
+          most the reference's, phi4-mini's FLOPs at most 1.03x,
+          xlstm-350m's within 0.1% of the reference's, its wire bytes by
+          kind printed beside the reference's and their total under it.
+          Each decode cell
           beside the reference's counts (``REFERENCE_DECODE``): bytes at
           most the reference's, wire bytes at most 1.5x, FLOPs within 10%
           (phi4-mini 2%, gemma-7b equal at 4 digits), and gemma-7b's
@@ -562,19 +564,22 @@ CARD_BEFORE = {
     ("gemma-7b", "train_4k", True): (10.14, 1.4532e14, {
         "all-gather": 2.423e9, "all-reduce": 5.526e10, "all-to-all": 5.161e6,
         "reduce-scatter": 1.185e9}),
-    ("arctic-480b", "train_4k", False): (56.51, 7.2701e14, {
-        "all-gather": 6.105e11, "all-reduce": 1.303e11, "all-to-all": 2.26e10,
+    ("arctic-480b", "train_4k", False): (34.79, 7.2701e14, {
+        "all-gather": 6.413e11, "all-reduce": 1.303e11, "all-to-all": 2.26e10,
         "reduce-scatter": 1.464e11}),
     ("llama-3.2-vision-90b", "train_4k", False): (72.06, 3.5416e15, {
         "all-gather": 5.17e10, "all-reduce": 1.218e12, "all-to-all": 1.26e9,
         "reduce-scatter": 3.35e10}),
-    ("phi4-mini-3.8b", "train_4k", False): (17.04, 1.6850e14, {
-        "all-gather": 4.857e10, "all-reduce": 5.078e10, "all-to-all": 2.77e9,
+    ("phi4-mini-3.8b", "train_4k", False): (5.79, 1.6850e14, {
+        "all-gather": 6.065e10, "all-reduce": 5.078e10, "all-to-all": 2.77e9,
         "reduce-scatter": 1.006e10}),
+    ("starcoder2-7b", "train_4k", False): (7.48, 2.7398e14, {
+        "all-gather": 8.462e10, "all-reduce": 7.624e10, "all-to-all": 3.649e9,
+        "reduce-scatter": 7.574e9}),
     (XLSTM, "train_4k", False): (135.49, 7.3919e13, {
         "all-gather": 5.373e8, "all-reduce": 1.044e9, "all-to-all": 5.898e6,
         "reduce-scatter": 2.542e8}),
-    ("deepseek-moe-16b", "train_4k", False): (20.68, 1.3732e14, {
+    ("deepseek-moe-16b", "train_4k", False): (20.68, 1.3503e14, {
         "all-gather": 3.377e11, "all-reduce": 7.206e10, "all-to-all": 1.118e10,
         "reduce-scatter": 8.937e10}),
     ("phi4-mini-3.8b", "decode_32k", False): (2.51, 1.4809e10, {
@@ -597,12 +602,12 @@ CARD_BEFORE = {
 BYTES_SLACK = 1.01
 # 13b: FLOPs a device on the CPU route (``python -m
 # repro_torch.launch.dryrun --device cpu``) of the rows this tree moved or
-# the card has not traced: deepseek-moe-16b's remat replay skips the MoE's
-# combine product and runs the shared experts' output product instead
-# (``moe.apply_moe``); starcoder2-7b's row is new. Each such row's FLOPs
-# equal these at 4 digits, and its bytes are held to the limits alone.
-CPU_ROUTE_FLOPS = {("deepseek-moe-16b", "train_4k", False): 1.3503e14,
-                   ("starcoder2-7b", "train_4k", False): 2.7398e14}
+# the card has not traced: xlstm-350m's projections take their weights'
+# gradients on the rank's 1/16 (``layers.split_weight_grad``), its mLSTM
+# readout's backward has no product of a contraction of 1, and its
+# recurrences start from zeros on the rank's batch rows. Each such row's
+# FLOPs equal these at 4 digits, its bytes held to ``CARD_BEFORE``'s.
+CPU_ROUTE_FLOPS = {(XLSTM, "train_4k", False): 5.8024e13}
 # 13b: absolute limits a device. arctic-480b, llama-3.2-vision-90b,
 # phi4-mini-3.8b and starcoder2-7b in GiB (arctic's under an 80 GB card's
 # 74.5; phi4's and starcoder2's the reference's, since each remat group
@@ -628,8 +633,16 @@ REFERENCE_TRAIN = {"deepseek-moe-16b": (37.09, 1.3179e14, 6.893e11),
                    "gemma-7b": (36.64, 2.8678e14, 3.822e9),
                    "phi4-mini-3.8b": (12.85, 1.6520e14, 1.706e11),
                    "starcoder2-7b": (16.52, 2.6904e14, 2.442e11),
-                   "llama-3.2-vision-90b": (156.68, 3.5035e15, 9.341e10)}
+                   "llama-3.2-vision-90b": (156.68, 3.5035e15, 9.341e10),
+                   XLSTM: (205.60, 5.8024e13, 1.220e9)}
 TRAIN_RATIO = {"deepseek-moe-16b": 1.025, "phi4-mini-3.8b": 1.03}
+# 13b train: FLOPs within this relative distance of the reference's
+# (xlstm-350m: every projection's weight gradient on the rank's TP slice,
+# as XLA's partitioner takes it), and the reference's wire bytes by kind,
+# printed beside the row's, whose total must stay under the reference's
+TRAIN_RTOL = {XLSTM: 1e-3}
+REFERENCE_WIRE = {XLSTM: {"all-gather": 1.2197e9, "all-reduce": 3.8716e11,
+                          "collective-permute": 9.5994e7}}
 # 13b decode: the reference's ``decode_32k`` counts a device on 16 x 16 (XLA's
 # compile for 256 host devices, the mesh's axes ``AxisType.Auto``): GiB,
 # FLOPs, collective wire bytes. Each decode cell holds its bytes at most the
@@ -2948,7 +2961,9 @@ def production_cell_row(arch: str, shape: str, multi_pod: bool,
 def reference_train_row(head: str, arch: str, rec: dict) -> None:
     """13b: a 16 x 16 ``train_4k`` cell beside the reference's counts
     (``REFERENCE_TRAIN``), its all-gather wire bytes at most the
-    reference's, its FLOPs ratio held to ``TRAIN_RATIO`` where it has one;
+    reference's, its FLOPs ratio held to ``TRAIN_RATIO`` (at most) or
+    ``TRAIN_RTOL`` (within) where it has one, its wire bytes by kind beside
+    ``REFERENCE_WIRE``'s where it has them, their total under it;
     deepseek-moe-16b's bytes under the reference's."""
     gib = rec["memory"]["total_bytes_per_device"] / 2**30
     flops = rec["roofline"]["flops"]
@@ -2964,6 +2979,19 @@ def reference_train_row(head: str, arch: str, rec: dict) -> None:
     if arch in TRAIN_RATIO:
         require(flops <= TRAIN_RATIO[arch] * ref[1],
                 f"{head}: FLOPs over {TRAIN_RATIO[arch]}x the reference's")
+    if arch in TRAIN_RTOL:
+        require(abs(flops / ref[1] - 1) <= TRAIN_RTOL[arch],
+                f"{head}: FLOPs not within {TRAIN_RTOL[arch]} of the "
+                "reference's")
+    if arch in REFERENCE_WIRE:
+        coll, want = rec["collectives"]["bytes_by_kind"], REFERENCE_WIRE[arch]
+        print(f"{head}: wire bytes by kind " + ", ".join(
+            f"{k} {coll.get(k, 0):.4e} (reference {want.get(k, 0):.4e})"
+            for k in sorted(set(coll) | set(want)))
+            + f"; total {sum(coll.values()):.4e} (reference "
+            f"{sum(want.values()):.4e})", flush=True)
+        require(sum(coll.values()) < sum(want.values()),
+                f"{head}: wire bytes not under the reference's")
     if arch == "deepseek-moe-16b":
         require(round(gib, 2) <= ref[0], f"{head}: bytes above the "
                 "reference's")

@@ -29,8 +29,10 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.device import require_device
 from repro_torch.kernels.ref import spans
 from repro_torch.parallel.sharding import (attention_placements, constant_like,
-                                           einsum, gather_like,
-                                           layout_of, local_map_calls,
+                                           current_mesh, einsum,
+                                           einsum_layout, einsum_letters,
+                                           gather_like, layout_of,
+                                           local_map_calls,
                                            map_local, placements_over,
                                            redistribute, reduce_partials,
                                            role_size, shard, shard_over,
@@ -313,6 +315,84 @@ def project_whole(x: torch.Tensor, w: torch.Tensor, seq,
     if x_s is None:
         return _ProjectWhole.apply(x, w, seq, None)
     return _ProjectWhole.apply(x.detach(), w, seq, x_s)
+
+
+class _Keep(torch.autograd.Function):
+    """x and w passed on as views and saved for the product that follows
+    (:class:`_WeightGradOnSlice`). Autograd packs a Function's saved
+    tensors after its forward has run, so a product that saved its own
+    operands would run again in a remat replay, which stops at the last
+    pack (the plain einsum's replay stops before it)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x.view_as(x), w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, dx, dw):
+        return dx, dw
+
+
+class _WeightGradOnSlice(torch.autograd.Function):
+    """``einsum(eqs[0], x, w)`` of operands already in its layout, whole
+    over TP, x and w kept by :class:`_Keep`; x's gradient whole too, w's on
+    the TP slice ``dim`` of x (``on_x``) or of the output's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, eqs, dim, on_x):
+        out = einsum(eqs[0], x, w)
+        ctx.keep, ctx.eqs, ctx.on_x = x.grad_fn, eqs, on_x
+        ctx.whole = tuple(out.placements)
+        ctx.cut = placements_over(x if on_x else out, dim, "tp")
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.keep.saved_tensors
+        _, dx_eq, dw_eq = ctx.eqs
+        if tuple(g.placements) != ctx.whole:
+            g = redistribute(g, ctx.whole)
+        dx = einsum(dx_eq, g, w) if ctx.needs_input_grad[0] else None
+        if ctx.on_x:
+            x = redistribute(x, ctx.cut)
+        else:
+            g = redistribute(g, ctx.cut)
+        return dx, einsum(dw_eq, x, g), None, None, None
+
+
+def split_weight_grad(eq: str, x: torch.Tensor,
+                      w: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, x, w)`` of an activation by a weight that TP does not
+    split, computed whole over TP as :func:`einsum` computes it, its
+    backward where XLA partitions it: x's gradient whole, w's gradient on
+    the rank's TP slice of one of w's dims (the first that TP divides and
+    w's placements do not shard), a partial sum over the batch, brought
+    to w's placements by ``redistribute`` (a reduce-scatter over the FSDP
+    axis, an all-gather over TP). Off a mesh, without grad, at TP = 1, or
+    where TP already splits the product, it is :func:`einsum`."""
+    mc = current_mesh()
+    if (mc is None or not torch.is_grad_enabled()
+            or not isinstance(x, DTensor) or not isinstance(w, DTensor)):
+        return einsum(eq, x, w)
+    x = reduce_partials(x)
+    (px, pw), pout, _ = einsum_layout(eq, x, w)
+    names = list(mc.mesh.mesh_dim_names)
+    tp = [names.index(a) for a in mc.rules.resolve("tp", mc.mesh) or ()]
+    n = math.prod(mc.mesh.shape[m] for m in tp)
+    (xs, ws), out = einsum_letters(eq, [x.ndim, w.ndim])
+    dims = [i for i, c in enumerate(ws) if w.shape[i] % n == 0
+            and Shard(i) not in w.placements]
+    if n == 1 or not dims or any(not isinstance(p[m], Replicate)
+                                 for m in tp for p in (pw, pout)):
+        return einsum(eq, x, w)
+    c = ws[dims[0]]
+    on_x = c in xs
+    eqs = (f"{xs},{ws}->{out}", f"{out},{ws}->{xs}", f"{xs},{out}->{ws}")
+    x, w = (t if tuple(t.placements) == p else redistribute(t, p)
+            for t, p in ((x, px), (w, pw)))
+    return _WeightGradOnSlice.apply(
+        *_Keep.apply(x, w), eqs, xs.index(c) if on_x else out.index(c), on_x)
 
 
 def _one_token_whole_heads(x: torch.Tensor, heads: int) -> bool:

@@ -36,7 +36,7 @@ from repro_torch.kernels.ref import rglru_scan_ref
 from repro_torch.parallel.sharding import einsum, shard
 from .config import ModelConfig
 from .layers import (Params, _one_token_whole_heads, _weak, dense_init,
-                     gather_tokens, split_contraction)
+                     gather_tokens, split_contraction, split_weight_grad)
 
 _RGLRU_C = 8.0
 
@@ -215,12 +215,10 @@ def _chunked_time_scan(scan_fn, carry0, xs, seq_len: int, time_chunk: int):
 def apply_slstm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d). Zero initial state."""
     b, s, d = x.shape
-    nh = cfg.n_heads
-    hd = d // nh
     dt = x.dtype
-    gx = einsum("bsd,dghl->bsghl", x, p["lstm_wx"].to(dt))
+    gx = split_weight_grad("bsd,dghl->bsghl", x, p["lstm_wx"].to(dt))
     gx = gx.float() + p["lstm_b"]
-    zeros = x.new_zeros((b, nh, hd), dtype=torch.float32)
+    zeros = torch.zeros_like(gx[:, 0, 0])   # (B, nh, hd), laid out as gx
     m0 = torch.full_like(zeros, _M0)
     wh = p["lstm_wh"]
 
@@ -231,7 +229,7 @@ def apply_slstm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     _, hs = _chunked_time_scan(scan_fn, (zeros, zeros, zeros, m0), (gx,), s,
                                cfg.time_chunk)
     hs = hs.reshape(b, s, d).to(dt)
-    return einsum("...d,dk->...k", hs, p["rg_out"]["wo"].to(dt))
+    return split_weight_grad("...d,dk->...k", hs, p["rg_out"]["wo"].to(dt))
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device="cuda") -> Params:
@@ -250,8 +248,11 @@ def init_slstm_state(cfg: ModelConfig, batch: int, device="cuda") -> Params:
 def _project_in(eq: str, x: torch.Tensor, w: torch.Tensor,
                 split: bool) -> torch.Tensor:
     """x (B, S, d) by a weight whose first dim is d; with ``split`` (a
-    sharded decode step) the contraction is split where the weight lies."""
-    return split_contraction(eq, x, w) if split else einsum(eq, x, w)
+    sharded decode step) the contraction is split where the weight lies,
+    else the product runs whole and its weight's gradient on the rank's TP
+    slice (``layers.split_weight_grad``)."""
+    return split_contraction(eq, x, w) if split else split_weight_grad(
+        eq, x, w)
 
 
 def _project_out(y: torch.Tensor, w: torch.Tensor,
@@ -319,6 +320,29 @@ def _mlstm_gates(p: Params, x: torch.Tensor, split: bool = False):
     return q, k, v, i_t, f_t, og
 
 
+class _ReadOut(torch.autograd.Function):
+    """The mLSTM readout ``einsum`` of C (B, nh, hd, hd) or n (B, nh, hd)
+    by q (B, nh, hd) over the last dim, its backward with no product of a
+    contraction of 1: the state's gradient is the broadcast product of the
+    output's gradient and q (one rounded multiply an element, as the
+    product's), q's the product by C or the broadcast product by n."""
+
+    @staticmethod
+    def forward(ctx, a, q):
+        ctx.save_for_backward(a, q)
+        return einsum("bhkl,bhl->bhk" if a.ndim == 4 else "bhl,bhl->bh",
+                      a, q)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, q = ctx.saved_tensors
+        if a.ndim == 4:
+            return (g[..., :, None] * q[..., None, :],
+                    einsum("bhkl,bhk->bhl", a, g))
+        g = g[..., None]
+        return g * q, g * a
+
+
 def _mlstm_cell(C, n, m, qt, kt, vt, it, ft):
     """One mLSTM time step. C: (B, nh, hd, hd), n: (B, nh, hd), m and the
     gates: (B, nh); q, k, v: (B, nh, hd); all fp32. Returns the new
@@ -329,8 +353,8 @@ def _mlstm_cell(C, n, m, qt, kt, vt, it, ft):
     C = f_p[..., None] * C + i_p[..., None] * \
         (vt[..., :, None] * kt[..., None, :])            # v k^T
     n = f_p * n + i_p * kt
-    num = einsum("bhkl,bhl->bhk", C, qt)
-    den = torch.abs(einsum("bhl,bhl->bh", n, qt))
+    num = _ReadOut.apply(C, qt)
+    den = torch.abs(_ReadOut.apply(n, qt))
     den = torch.maximum(den, den.new_ones(()))[..., None]
     return C, n, m_t, num / den
 
@@ -338,8 +362,7 @@ def _mlstm_cell(C, n, m, qt, kt, vt, it, ft):
 def apply_mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d). Zero initial state."""
     b, s, d = x.shape
-    nh = cfg.n_heads
-    hd = d // nh
+    hd = d // cfg.n_heads
     dt = x.dtype
     q, k, v, i_t, f_t, og = _mlstm_gates(p, x)
 
@@ -347,13 +370,14 @@ def apply_mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         C, n, m, h = _mlstm_cell(*carry, qt, kt, vt, it, ft)
         return (C, n, m), h
 
-    C0 = x.new_zeros((b, nh, hd, hd), dtype=torch.float32)
-    n0 = x.new_zeros((b, nh, hd), dtype=torch.float32)
-    m0 = x.new_full((b, nh), _M0, dtype=torch.float32)
     xs = (q.float(), k.float(), v.float(), i_t, f_t)
+    # zeros laid out as the inputs (a DTensor's batch shards too)
+    n0 = torch.zeros_like(xs[0][:, 0])                   # (B, nh, hd)
+    C0 = torch.zeros_like(n0[..., None].expand(*n0.shape, hd))
+    m0 = torch.full_like(i_t[:, 0], _M0)                 # (B, nh)
     _, hs = _chunked_time_scan(scan_fn, (C0, n0, m0), xs, s, cfg.time_chunk)
     hs = hs.reshape(b, s, d).to(dt) * og.to(dt)          # (B,S,d)
-    return einsum("...d,dk->...k", hs, p["rg_out"]["wo"].to(dt))
+    return split_weight_grad("...d,dk->...k", hs, p["rg_out"]["wo"].to(dt))
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device="cuda") -> Params:

@@ -704,7 +704,7 @@ def on_group_shards(fn, x: DTensor, n_out: int):
                      x.device_mesh)
 
 
-def _letters(eq: str, ndims) -> Tuple[List[str], str]:
+def einsum_letters(eq: str, ndims) -> Tuple[List[str], str]:
     """``eq``'s operand and output subscripts with every ``...`` spelled
     out in capitals (broadcast dims align on the right, as in einsum)."""
     lhs, out = eq.replace(" ", "").split("->")
@@ -730,9 +730,24 @@ def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     if not any(isinstance(o, DTensor) for o in operands):
         return torch.einsum(eq, *operands)
     ref = next(o for o in operands if isinstance(o, DTensor))
-    mesh = ref.device_mesh
     operands = [reduce_partials(constant_like(o, ref)) for o in operands]
-    ins, out = _letters(eq, [o.ndim for o in operands])
+    in_pl, out_pl, grad_pl = einsum_layout(eq, *operands)
+
+    def local(*xs):
+        return torch.einsum(eq, *xs).contiguous()
+
+    local_map_calls["einsum"] += 1
+    return map_local(local, out_pl, in_pl, ref.device_mesh,
+                     grad_pl)(*operands)
+
+
+def einsum_layout(eq: str, *operands: DTensor):
+    """The placements :func:`einsum` runs ``eq`` in over DTensor
+    ``operands`` (no pending sums): each operand's (tuples), the output's
+    (a list, as ``local_map`` takes one output's) and each operand's
+    gradient's (tuples)."""
+    mesh = operands[0].device_mesh
+    ins, out = einsum_letters(eq, [o.ndim for o in operands])
     size = {c: d for t, o in zip(ins, operands) for c, d in zip(t, o.shape)}
     split = dict.fromkeys(size, 1)
     whole = Replicate()
@@ -752,13 +767,7 @@ def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
         for i, t in enumerate(ins):
             in_pl[i][m] = Shard(t.index(c)) if c in t else whole
             grad_pl[i][m] = in_pl[i][m] if c in t else Partial()
-
-    def local(*xs):
-        return torch.einsum(eq, *xs).contiguous()
-
-    local_map_calls["einsum"] += 1
-    return map_local(local, out_pl, [tuple(p) for p in in_pl], mesh,
-                     [tuple(p) for p in grad_pl])(*operands)
+    return ([tuple(p) for p in in_pl], out_pl, [tuple(p) for p in grad_pl])
 
 
 # ---------------------------------------------------------------------------

@@ -317,10 +317,13 @@ def test_smoke_moe_flops_a_device_match_the_reference(name, kind, runs):
 # devices, the mesh's axes made ``AxisType.Auto`` (under JAX 0.9's default
 # Explicit axes its decode cells raise): one JSON line a cell. Run it as
 # ``PYTHONPATH=src python tests/test_torch_moe_shards.py [--multi-pod]
-# [--hlo DIR] ARCH:SHAPE ...``; with ``--hlo`` each cell's compiled HLO text
-# (what ``parse_hlo_profile`` reads) is written to ``DIR/ARCH_SHAPE.hlo``.
+# [--hlo DIR] [--layers N] [--seq S] ARCH:SHAPE ...``; with ``--hlo`` each
+# cell's compiled HLO text (what ``parse_hlo_profile`` reads) is written to
+# ``DIR/ARCH_SHAPE.hlo``; ``--layers`` cuts every cell's depth and ``--seq``
+# sets its S (``XLSTM_CUT``: ``--layers 4 --seq 1024 xlstm-350m:train_4k``,
+# 18 s).
 REFERENCE_CELLS = """
-import json, os, sys
+import dataclasses, json, os, sys
 devices = sys.argv[1]
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=" + devices
 os.environ["JAX_PLATFORMS"] = "cpu"
@@ -337,6 +340,8 @@ def auto_mesh(shape, axes, **kw):
 jax.make_mesh = auto_mesh
 import repro.launch.dryrun as dryrun
 hlo_dir = os.environ.get("REFERENCE_HLO_DIR")
+layers = os.environ.get("REFERENCE_N_LAYERS")
+seq = os.environ.get("REFERENCE_SEQ_LEN")
 parse = dryrun.hs.parse_hlo_profile
 
 
@@ -351,8 +356,12 @@ if hlo_dir:
 for cell in sys.argv[2:]:
     arch, shape = cell.split(":")
     name = f"{arch}_{shape}"
+    if seq:     # the dict the reference's input specs read too
+        dryrun.SHAPES[shape] = dataclasses.replace(dryrun.SHAPES[shape],
+                                                   seq_len=int(seq))
     r = dryrun.dryrun_cell(arch, shape, multi_pod=devices == "512",
-                           verbose=False)
+                           hillclimb={"n_layers": int(layers)} if layers
+                           else None, verbose=False)
     out = {"arch": arch, "shape": shape, "status": r["status"]}
     if r["status"] == "ok":
         out.update(flops=r["roofline"]["hlo_flops"],
@@ -363,12 +372,16 @@ for cell in sys.argv[2:]:
 """
 
 
-def reference_counts(cells, multi_pod: bool = False, hlo_dir=None):
+def reference_counts(cells, multi_pod: bool = False, hlo_dir=None,
+                     n_layers=None, seq_len=None):
     """The reference's counts of ``cells`` ("arch:shape" each), one dict a
     cell: FLOPs and wire bytes a device, GiB a device; with ``hlo_dir``
-    each cell's compiled HLO text written there too."""
-    env = dict(os.environ, **({"REFERENCE_HLO_DIR": os.path.abspath(hlo_dir)}
-                              if hlo_dir else {}))
+    each cell's compiled HLO text written there too; ``n_layers`` and
+    ``seq_len`` cut every cell's depth and set its S."""
+    over = {"REFERENCE_HLO_DIR": hlo_dir and os.path.abspath(hlo_dir),
+            "REFERENCE_N_LAYERS": n_layers and str(n_layers),
+            "REFERENCE_SEQ_LEN": seq_len and str(seq_len)}
+    env = dict(os.environ, **{k: v for k, v in over.items() if v})
     run = subprocess.run([sys.executable, "-c", REFERENCE_CELLS,
                           "512" if multi_pod else "256", *cells], cwd=ROOT,
                          capture_output=True, text=True, check=True, env=env)
@@ -389,6 +402,13 @@ BEFORE_GIB = {("deepseek-moe-16b", "prefill_32k"): 10.91,
               ("deepseek-moe-16b", "train_4k"): 27.57,
               ("arctic-480b", "prefill_32k"): 19.17}
 ARCTIC_PREFILL_LIMIT = 3.6e14
+# xlstm-350m ``train_4k`` cut to 4 layers (two sLSTM / mLSTM groups): the
+# reference's FLOPs a device by S (``reference_counts(["xlstm-350m:
+# train_4k"], n_layers=4, seq_len=S)``). Below S of about 1024 XLA's count
+# is not affine in S, and one group is not representative: compare a
+# recurrent cell at two groups or more and S of 1024 or 4096.
+XLSTM_CUT = {"n_layers": 4,
+             "flops": {1024: 2683415035904, 4096: 10733660143616}}
 
 
 @pytest.fixture(scope="module")
@@ -502,8 +522,12 @@ def test_no_collective_moves_the_slots(cell, cells):
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    hlo = args[args.index("--hlo") + 1] if "--hlo" in args else None
+    opts = {k: args[args.index(k) + 1] if k in args else None
+            for k in ("--hlo", "--layers", "--seq")}
+    flags = {"--multi-pod"} | {k for k, v in opts.items() if v} \
+        | {v for v in opts.values() if v}
     for rec in reference_counts(
-            [a for a in args if a not in ("--multi-pod", "--hlo", hlo)],
-            multi_pod="--multi-pod" in args, hlo_dir=hlo):
+            [a for a in args if a not in flags],
+            multi_pod="--multi-pod" in args, hlo_dir=opts["--hlo"],
+            n_layers=opts["--layers"], seq_len=opts["--seq"]):
         print(json.dumps(rec))
