@@ -250,8 +250,9 @@ for each source, all started together), then
           and starcoder2-7b at most the reference's 12.85 and 16.52 GiB.
           Each 16 x 16 train cell beside the reference's counts
           (``REFERENCE_TRAIN``): its all-gather wire bytes at most the
-          reference's; deepseek's FLOPs at most 1.025x and its bytes at
-          most the reference's, phi4-mini's FLOPs at most 1.03x,
+          reference's; deepseek's FLOPs at most 1.015x and its bytes at
+          most the reference's, arctic-480b's FLOPs at most 1.012x,
+          llama-3.2-vision-90b's 1.007x, phi4-mini's 1.03x,
           xlstm-350m's within 0.1% of the reference's, its wire bytes by
           kind printed beside the reference's and their total under it.
           Each decode cell
@@ -576,9 +577,9 @@ CARD_BEFORE = {
     ("starcoder2-7b", "train_4k", False): (7.48, 2.7398e14, {
         "all-gather": 8.462e10, "all-reduce": 7.624e10, "all-to-all": 3.649e9,
         "reduce-scatter": 7.574e9}),
-    (XLSTM, "train_4k", False): (135.49, 7.3919e13, {
-        "all-gather": 5.373e8, "all-reduce": 1.044e9, "all-to-all": 5.898e6,
-        "reduce-scatter": 2.542e8}),
+    (XLSTM, "train_4k", False): (134.76, 5.8024e13, {
+        "all-gather": 5.0485e8, "all-reduce": 1.0435e9,
+        "all-to-all": 6.6355e6, "reduce-scatter": 3.2993e7}),
     ("deepseek-moe-16b", "train_4k", False): (20.68, 1.3503e14, {
         "all-gather": 3.377e11, "all-reduce": 7.206e10, "all-to-all": 1.118e10,
         "reduce-scatter": 8.937e10}),
@@ -602,12 +603,15 @@ CARD_BEFORE = {
 BYTES_SLACK = 1.01
 # 13b: FLOPs a device on the CPU route (``python -m
 # repro_torch.launch.dryrun --device cpu``) of the rows this tree moved or
-# the card has not traced: xlstm-350m's projections take their weights'
-# gradients on the rank's 1/16 (``layers.split_weight_grad``), its mLSTM
-# readout's backward has no product of a contraction of 1, and its
-# recurrences start from zeros on the rank's batch rows. Each such row's
-# FLOPs equal these at 4 digits, its bytes held to ``CARD_BEFORE``'s.
-CPU_ROUTE_FLOPS = {(XLSTM, "train_4k", False): 5.8024e13}
+# the card has not traced: llama-3.2-vision-90b's cross k and v take their
+# weights' gradients on the rank's 1/16 (``layers.project_source``), and a
+# MoE block's remat replay runs none of its output products
+# (``layers.output_products``: deepseek-moe-16b's shared experts' ``wo``,
+# arctic-480b's combine). Each such row's FLOPs equal these at 4 digits,
+# its bytes held to ``CARD_BEFORE``'s.
+CPU_ROUTE_FLOPS = {("llama-3.2-vision-90b", "train_4k", False): 3.5255e15,
+                   ("deepseek-moe-16b", "train_4k", False): 1.3371e14,
+                   ("arctic-480b", "train_4k", False): 7.2175e14}
 # 13b: absolute limits a device. arctic-480b, llama-3.2-vision-90b,
 # phi4-mini-3.8b and starcoder2-7b in GiB (arctic's under an 80 GB card's
 # 74.5; phi4's and starcoder2's the reference's, since each remat group
@@ -624,10 +628,11 @@ GATHER_SCATTER_LIMIT = {"arctic-480b": (1.846e12 + 1.296e12) / 2}
 # 16 x 16 train row prints its own beside them, its all-gather wire bytes at
 # most the reference's (a saved slice is gathered once for its replay), its
 # FLOPs at most ``TRAIN_RATIO`` times the reference's where it has one:
-# deepseek-moe-16b's (the flash VJP's recomputed logits and remat's dead
-# shared-experts output product, tests/test_torch_moe_shards.py), its bytes
-# under the reference's too, and phi4-mini-3.8b's (the recomputed logits
-# alone: its k and v products run where XLA's do).
+# the flash VJP's recomputed logits alone, for deepseek-moe-16b (its bytes
+# under the reference's too) and arctic-480b (their remat replays run no
+# output product, tests/test_torch_moe_shards.py and
+# tests/test_torch_replay_cuts.py), llama-3.2-vision-90b (its cross k and v
+# run where XLA's do) and phi4-mini-3.8b (its k and v products too).
 REFERENCE_TRAIN = {"deepseek-moe-16b": (37.09, 1.3179e14, 6.893e11),
                    "arctic-480b": (57.86, 7.1333e14, 1.493e12),
                    "gemma-7b": (36.64, 2.8678e14, 3.822e9),
@@ -635,7 +640,8 @@ REFERENCE_TRAIN = {"deepseek-moe-16b": (37.09, 1.3179e14, 6.893e11),
                    "starcoder2-7b": (16.52, 2.6904e14, 2.442e11),
                    "llama-3.2-vision-90b": (156.68, 3.5035e15, 9.341e10),
                    XLSTM: (205.60, 5.8024e13, 1.220e9)}
-TRAIN_RATIO = {"deepseek-moe-16b": 1.025, "phi4-mini-3.8b": 1.03}
+TRAIN_RATIO = {"deepseek-moe-16b": 1.015, "arctic-480b": 1.012,
+               "llama-3.2-vision-90b": 1.007, "phi4-mini-3.8b": 1.03}
 # 13b train: FLOPs within this relative distance of the reference's
 # (xlstm-350m: every projection's weight gradient on the rank's TP slice,
 # as XLA's partitioner takes it), and the reference's wire bytes by kind,

@@ -18,6 +18,7 @@ scalar to the tensor's dtype so both packages compute the same products
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -220,6 +221,12 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0) -> Params:
 
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return einsum("...f,fd->...d", mlp_hidden(p, x, cfg), p["wo"].to(x.dtype))
+
+
+def mlp_hidden(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MLP's hidden activation (..., f), the operand of its output
+    product by ``p["wo"]``."""
     dt = x.dtype
     h = einsum("...d,df->...f", x, p["wi"].to(dt))
     if cfg.mlp == "swiglu":
@@ -230,8 +237,7 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.gelu(g, approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
-    h = shard(h, "act_ff")
-    return einsum("...f,fd->...d", h, p["wo"].to(dt))
+    return shard(h, "act_ff")
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +268,27 @@ def _qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor):
     there: with q over the sequence, k's product runs on the shard too
     (``_shard_kv`` gathers it) and v's stays whole; with q over heads,
     both stay whole. The whole ones take their backward on the shard
-    (:func:`project_whole`). Cross-attention's k and v, decode's one token
-    and a sequence that does not divide pass through."""
+    (:func:`project_whole`). Decode's one token and a sequence that does
+    not divide pass through.
+
+    Cross-attention's k and v (``kv_src`` is not x) where the kv heads do
+    not divide TP (:func:`project_source`) follow what XLA's compile of
+    the reference does on 16 x 16: llama-3.2-vision-90b (8 kv heads, the
+    stub's patch embeddings (B, 1601, 8192) as the source) splits the
+    contraction in ``prefill_32k`` (``dot.183`` / ``dot.184``: the
+    embeddings' d slice ``f32[3202,512]`` by the weight's rows
+    ``f32[512,1024]``, then ``all-reduce.49`` of ``f32[2,1601,8,128]``
+    over ``model``), and in ``train_4k`` keeps the forward and its remat
+    replay whole (``dot.482`` / ``.483``, ``dot.613`` / ``.614``,
+    ``f32[25616,8192]`` by ``f32[8192,1024]``) with each weight gradient
+    on 1/16 (``dot.572`` / ``.576``, ``f32[1024,512]``). whisper-small (12
+    kv heads, its encoder's output (B, 1500, 768) as the source) keeps
+    them whole (``prefill_32k``: ``dot.104`` / ``.105``, ``f32[3000,768]``,
+    the contraction 768 whole). The rule that fits both: without grad the
+    contraction is split where the source's rows a device are fewer than
+    d (3202 < 8192; whisper's 3000 > 768); with grad the weight's gradient
+    is taken on the rank's slice where the source takes no gradient
+    (llama's stub embeddings; whisper's encoder output takes one)."""
     dt = x.dtype
     tp = max(role_size("tp"), 1)
     wq = p["wq"].to(dt)
@@ -272,8 +297,10 @@ def _qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor):
     split_q = wq.shape[1] % tp > 0
     x_s = redistribute(x, seq) if split_q and seq is not None else x
     q = project_heads(x_s, wq)
-    if kv_src is not x or seq is None or wk.shape[1] % tp == 0:
-        return q, project_heads(kv_src, wk), project_heads(kv_src, wv)
+    if kv_src is not x:
+        return q, project_source(kv_src, wk), project_source(kv_src, wv)
+    if seq is None or wk.shape[1] % tp == 0:
+        return q, project_heads(x, wk), project_heads(x, wv)
     if not split_q:
         return q, project_whole(x, wk, seq), project_whole(x, wv, seq)
     return q, project_heads(x_s, wk), project_whole(x, wv, seq, x_s)
@@ -317,32 +344,74 @@ def project_whole(x: torch.Tensor, w: torch.Tensor, seq,
     return _ProjectWhole.apply(x.detach(), w, seq, x_s)
 
 
+def project_source(src: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Cross-attention's k or v, ``src @ w`` into heads: (B, T, d) by (d,
+    Kv, D). Where the kv heads do not divide TP it runs where XLA runs it
+    (``_qkv``'s rule): with grad, whole, its weight's gradient on the
+    rank's TP slice (:func:`split_weight_grad`) where the source takes no
+    gradient; without grad, split over TP (:func:`split_source`) where
+    the source's rows a device are fewer than d. Else, off a mesh and at
+    TP = 1 it is :func:`project_heads`."""
+    eq = "...sd,dhk->...shk"
+    if not isinstance(src, DTensor) or w.shape[1] % max(
+            role_size("tp"), 1) == 0:
+        return project_heads(src, w)
+    if torch.is_grad_enabled() and (src.requires_grad or w.requires_grad):
+        return (project_heads(src, w) if src.requires_grad
+                else split_weight_grad(eq, src, w))
+    if math.prod(src.to_local().shape[:-1]) < src.shape[-1]:
+        return split_source(eq, src, w)
+    return project_heads(src, w)
+
+
 class _Keep(torch.autograd.Function):
-    """x and w passed on as views and saved for the product that follows
-    (:class:`_WeightGradOnSlice`). Autograd packs a Function's saved
-    tensors after its forward has run, so a product that saved its own
-    operands would run again in a remat replay, which stops at the last
-    pack (the plain einsum's replay stops before it)."""
+    """Tensors passed on as views and saved for the products that follow
+    (:class:`_WeightGradOnSlice`, :class:`_Products`). Autograd packs a
+    Function's saved tensors after its forward has run, so a product that
+    saved its own operands would run again in a remat replay, which stops
+    at the last pack (the plain einsum's replay stops before it). Each
+    tensor is saved where ``save`` says (an operand is needed by its
+    partner's gradient alone), else None; a view of a tensor that takes no
+    gradient takes none either, and no tensor of zeros is made for it in
+    the backward."""
 
     @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return x.view_as(x), w.view_as(w)
+    def forward(ctx, save, *ts):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*(t if k else None for t, k in zip(ts, save)))
+        out = tuple(t.view_as(t) for t in ts)
+        ctx.mark_non_differentiable(*(o for o, need in zip(
+            out, ctx.needs_input_grad[1:]) if not need))
+        return out
 
     @staticmethod
-    def backward(ctx, dx, dw):
-        return dx, dw
+    def backward(ctx, *gs):
+        return (None, *gs)
+
+
+def _keep_pairs(*ts):
+    """:class:`_Keep` of the operand pairs ``ts`` (a, b, a, b, ...), each
+    saved where its partner takes a gradient."""
+    partners = [ts[i ^ 1].requires_grad for i in range(len(ts))]
+    return _Keep.apply(tuple(partners), *ts)
+
+
+def _kept(ts):
+    """The :class:`_Keep` node that made the views ``ts``, None where none
+    takes a gradient."""
+    return next((t.grad_fn for t in ts if t.grad_fn is not None), None)
 
 
 class _WeightGradOnSlice(torch.autograd.Function):
     """``einsum(eqs[0], x, w)`` of operands already in its layout, whole
-    over TP, x and w kept by :class:`_Keep`; x's gradient whole too, w's on
-    the TP slice ``dim`` of x (``on_x``) or of the output's gradient."""
+    over TP, x and w kept by :class:`_Keep`; x's gradient, where it takes
+    one, whole too, w's on the TP slice ``dim`` of x (``on_x``) or of the
+    output's gradient."""
 
     @staticmethod
     def forward(ctx, x, w, eqs, dim, on_x):
         out = einsum(eqs[0], x, w)
-        ctx.keep, ctx.eqs, ctx.on_x = x.grad_fn, eqs, on_x
+        ctx.keep, ctx.eqs, ctx.on_x = _kept((x, w)), eqs, on_x
         ctx.whole = tuple(out.placements)
         ctx.cut = placements_over(x if on_x else out, dim, "tp")
         return out
@@ -354,6 +423,8 @@ class _WeightGradOnSlice(torch.autograd.Function):
         if tuple(g.placements) != ctx.whole:
             g = redistribute(g, ctx.whole)
         dx = einsum(dx_eq, g, w) if ctx.needs_input_grad[0] else None
+        if not ctx.needs_input_grad[1]:
+            return dx, None, None, None, None
         if ctx.on_x:
             x = redistribute(x, ctx.cut)
         else:
@@ -392,7 +463,75 @@ def split_weight_grad(eq: str, x: torch.Tensor,
     x, w = (t if tuple(t.placements) == p else redistribute(t, p)
             for t, p in ((x, px), (w, pw)))
     return _WeightGradOnSlice.apply(
-        *_Keep.apply(x, w), eqs, xs.index(c) if on_x else out.index(c), on_x)
+        *_keep_pairs(x, w), eqs, xs.index(c) if on_x else out.index(c),
+        on_x)
+
+
+class _Products(torch.autograd.Function):
+    """``einsum(eq, a, b)`` for each ``eq`` of ``eqs`` and each pair of
+    operands, already in :func:`einsum`'s layout and kept by
+    :class:`_Keep`, in one node that saves nothing: a remat replay stops
+    at the keep, before every product. Each operand's gradient is the
+    local einsum that autograd takes of the product, in the placements
+    :func:`einsum` gives it."""
+
+    @staticmethod
+    def forward(ctx, eqs, *ops):
+        ctx.set_materialize_grads(False)
+        pairs = list(zip(ops[0::2], ops[1::2]))
+        ctx.keep = _kept(ops)
+        ctx.letters = [einsum_letters(eq, [a.ndim, b.ndim])
+                       for eq, (a, b) in zip(eqs, pairs)]
+        ctx.layouts = [einsum_layout(eq, a, b) if isinstance(a, DTensor)
+                       else None for eq, (a, b) in zip(eqs, pairs)]
+        return tuple(einsum(eq, a, b) for eq, (a, b) in zip(eqs, pairs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ops = ctx.keep.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        grads = []
+        for i, (((xa, xb), xo), lay, g) in enumerate(
+                zip(ctx.letters, ctx.layouts, gs)):
+            a, b = ops[2 * i:2 * i + 2]
+            for k, grad_eq, ins in ((0, f"{xo},{xb}->{xa}", (g, b)),
+                                    (1, f"{xa},{xo}->{xb}", (a, g))):
+                if g is None or not need[2 * i + k]:
+                    grads.append(None)
+                elif lay is None:
+                    grads.append(torch.einsum(grad_eq, *ins))
+                else:
+                    (in_a, in_b), out, grad_pl = lay
+                    # the output's pending sums arrive as their whole
+                    # gradient, as ``local_map`` takes them
+                    out = tuple(Replicate() if q.is_partial() else q
+                                for q in out)
+                    grads.append(map_local(
+                        functools.partial(torch.einsum, grad_eq),
+                        list(grad_pl[k]), ((out, in_b), (in_a, out))[k],
+                        g.device_mesh)(*ins))
+        return (None, *grads)
+
+
+def output_products(products):
+    """``einsum(eq, a, b)`` of each ``(eq, a, b)`` in ``products``: a
+    block's output products, whose outputs no backward reads. Their
+    operands are moved to :func:`einsum`'s layout and kept by one
+    :class:`_Keep` before any product runs, so that a remat replay, which
+    runs to the last op that saves a tensor, stops before all of them, as
+    XLA drops them from its replay as dead (torch's replay would run every
+    one but the last)."""
+    placed = []
+    for eq, a, b in products:
+        if isinstance(a, DTensor) or isinstance(b, DTensor):
+            ref = a if isinstance(a, DTensor) else b
+            a, b = (reduce_partials(constant_like(t, ref)) for t in (a, b))
+            (pa, pb), _, _ = einsum_layout(eq, a, b)
+            a, b = (t if tuple(t.placements) == p else redistribute(t, p)
+                    for t, p in ((a, pa), (b, pb)))
+        placed += [a, b]
+    return _Products.apply(tuple(eq for eq, _, _ in products),
+                           *_keep_pairs(*placed))
 
 
 def _one_token_whole_heads(x: torch.Tensor, heads: int) -> bool:
@@ -418,6 +557,20 @@ def split_contraction(eq: str, x: torch.Tensor, w: torch.Tensor,
                          for px, pw in zip(x.placements, w.placements)])
     x, w = shard_over(x, d, "tp"), shard_over(w, w_dim, "tp")
     return redistribute(einsum(eq, x, w), batch)
+
+
+def split_source(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, x, w)`` of a DTensor ``x`` of many tokens whose last dim
+    is contracted against w's first dim, split over TP as XLA splits
+    cross-attention's k and v without grad: x keeps its shards and each
+    rank takes its TP slice of the contracted dim, w is brought to the
+    matching slices (gathered over its other mesh dims), and one
+    all-reduce over TP sums the partial products."""
+    d = x.ndim - 1
+    x = shard_over(reduce_partials(x), d, "tp")
+    w = redistribute(w, [Shard(0) if p == Shard(d) else Replicate()
+                         for p in x.placements])
+    return reduce_partials(einsum(eq, x, w))
 
 
 def gather_tokens(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

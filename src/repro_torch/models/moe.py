@@ -10,7 +10,8 @@ are dense einsums over (group, token, expert, slot).
 Covers both MoE archs:
   * deepseek-moe-16b: 64 routed top-6 + 2 shared experts (fine-grained);
   * arctic-480b: 128 routed top-2 + a parallel dense residual FFN
-    (``dense_residual_ff``; added by the caller in ``transformer.py``).
+    (``dense_residual_ff``; ``transformer.py`` passes its parameters to
+    :func:`apply_moe`, which adds it).
 
 Two steps compute what the reference computes in another way:
   * the top-k: ``jax.lax.top_k`` returns tied values lower index first and
@@ -31,7 +32,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +43,8 @@ from repro_torch.parallel.sharding import (constant_like, current_mesh,
                                            on_group_shards, replicate_dim,
                                            shard, shard_over)
 from .config import ModelConfig
-from .layers import Params, apply_mlp, dense_init, init_mlp
+from .layers import (Params, apply_mlp, dense_init, init_mlp,
+                     mlp_hidden, output_products)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -163,13 +165,42 @@ def _gates(probs: torch.Tensor,
     return gate_vals, gate_idx
 
 
-def apply_moe(p: Params, x: torch.Tensor,
-              cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B, S, d) -> (out, aux).
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              dense_ff: Optional[Params] = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, d) -> (out, aux); ``dense_ff``, a dense residual FFN's
+    parameters, adds that MLP of x to the output.
 
     aux: ``aux_loss`` (load balancing, Shazeer-style), ``z_loss`` and
     ``expert_load`` (the mean router probability of each expert).
-    """
+
+    With grad, the block's output products (the combine, the shared
+    experts' and the dense FFN's ``wo``) run in one node after their
+    operands are kept (``layers.output_products``), so that a remat replay
+    runs none of them. Without grad each runs as its operands come, the
+    combine's freed before the MLPs run."""
+    eq = "necd,ngec->ngd"
+    eout, combine, aux = _routed(p, x, cfg)
+    mlps = [q for q in (p.get("shared"), dense_ff) if q is not None]
+    if torch.is_grad_enabled():
+        out, *ys = output_products(
+            [(eq, eout, combine)]
+            + [("...f,fd->...d", mlp_hidden(q, x, cfg), q["wo"].to(x.dtype))
+               for q in mlps])
+    else:
+        out = einsum(eq, eout, combine)
+        del eout, combine
+        ys = [apply_mlp(q, x, cfg) for q in mlps]
+    out = out.reshape(x.shape)
+    for y in ys:
+        out = out + y
+    return out, aux
+
+
+def _routed(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """The routed experts of x (B, S, d): (their outputs (n, E, C, d), the
+    combine (n, g, E, C) in x's dtype, aux), the routing's temporaries
+    freed."""
     m = cfg.moe
     b, s, d = x.shape
     n_groups, g = group_split(b * s, m.group_size)
@@ -222,18 +253,5 @@ def apply_moe(p: Params, x: torch.Tensor,
     gte = einsum("necd,edf->necf", expert_in, w["wg"].to(dt))
     h = F.silu(gte) * h
     eout = einsum("necf,efd->necd", h, w["wo"].to(dt))
-    eout = shard(eout, spec)
-    # A remat replay runs up to the last op that saves a tensor, and stops
-    # as that op saves its inputs, before its product. Of the output
-    # products, whose outputs no backward reads (XLA drops them as dead),
-    # all but the last run in the replay, so the costlier runs last: the
-    # combine after the shared experts' (deepseek-moe-16b: 1.29e11 against
-    # 4.72e10 FLOPs a device and layer, train_4k on 16 x 16); arctic-480b's
-    # dense residual FFN after the combine (2.86e11 against 1.50e11).
-    shared = apply_mlp(p["shared"], x, cfg) if "shared" in p else None
-    out = einsum("necd,ngec->ngd", eout, combine.to(dt))
-
-    out = out.reshape(b, s, d)
-    if shared is not None:
-        out = out + shared
-    return out, {"aux_loss": aux_loss, "z_loss": z_loss, "expert_load": me}
+    return shard(eout, spec), combine.to(dt), {
+        "aux_loss": aux_loss, "z_loss": z_loss, "expert_load": me}

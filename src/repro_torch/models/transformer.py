@@ -135,11 +135,8 @@ def _apply_moe_ffn(p: Params, x: torch.Tensor,
                    cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """The ``moe`` block's FFN: the MoE, plus the dense residual FFN on the
     same normed input where the arch has one (arctic-480b)."""
-    h = apply_norm(p["norm2"], x, cfg)
-    y, aux = apply_moe(p["moe"], h, cfg)
-    if "dense_ff" in p:
-        y = y + apply_mlp(p["dense_ff"], h, cfg)
-    return y, aux
+    return apply_moe(p["moe"], apply_norm(p["norm2"], x, cfg), cfg,
+                     p.get("dense_ff"))
 
 
 def _checkpoint(fn, first: str, cfg: ModelConfig, x: torch.Tensor, *args):

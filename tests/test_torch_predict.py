@@ -170,19 +170,13 @@ def test_step_flops_match_the_compiled_jax_step(arch, flash):
     VJP's products are the same on both sides: the port's forms no output
     product P·V, which XLA drops from the reference's as dead.
 
-    An MoE block has one such gap of its own: the remat recompute ends as
-    the MoE's combine product ``necd,ngec->ngd``, the block's last op that
-    saves a tensor, saves its inputs; the shared experts' output product
-    runs before it (``moe.apply_moe``), and its output is dead there: XLA
-    drops it, ``torch.utils.checkpoint`` computes it, 2·B·S·d·F_shared
-    FLOPs a layer.
+    An MoE block's output products (the combine and the shared experts'
+    ``wo``), whose outputs are dead in the remat recompute, run in one
+    node after their operands are kept (``layers.output_products``), so
+    that the recompute ends before all of them, as XLA's does.
     """
     cfg, got = _port_step_flops(arch, flash)
     want = _jax_step_flops(arch, flash)
-    if cfg.moe is not None:
-        shared = 2 * 2 * S * cfg.d_model * cfg.d_expert_eff \
-            * cfg.moe.num_shared
-        want += cfg.n_layers * shared
     if flash:
         u = 2 * 2 * cfg.n_heads * S * S * cfg.head_dim
         n_attn = sum(k == "attn" for k in cfg.pattern) * cfg.n_groups
