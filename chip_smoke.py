@@ -227,7 +227,7 @@ for each source, all started together), then
           ``decode_32k`` on 16 x 16, gemma-7b ``train_4k`` on 2 x 16 x 16,
           arctic-480b, llama-3.2-vision-90b, phi4-mini-3.8b and
           starcoder2-7b ``train_4k`` on 16 x 16 through ``dryrun_cell``,
-          four cells at a time in
+          six cells at a time in
           spawned processes, read in this order: each ``ok``, with its bytes
           and FLOPs a device, collective wire bytes by kind, the three
           roofline terms under the H100 SXM5 constants, the bottleneck,
@@ -239,7 +239,9 @@ for each source, all started together), then
           32 and extrapolated to 4096 (its record's ``extrapolated`` key
           printed); deepseek-moe-16b ``train_4k``; and the ``decode_32k``
           cells of phi4-mini-3.8b, deepseek-moe-16b, llama-3.2-vision-90b,
-          recurrentgemma-2b, whisper-small and xlstm-350m. Every row
+          recurrentgemma-2b, whisper-small and xlstm-350m; whisper-small
+          ``train_4k``; and the ``long_500k`` cells (one row of one
+          token) of recurrentgemma-2b and xlstm-350m. Every row
           beside its last accepted card counts (``CARD_BEFORE``): FLOPs
           equal at 4 digits (to the CPU route's, ``CPU_ROUTE_FLOPS``,
           where this tree moved them or the card has none); bytes at most
@@ -253,8 +255,11 @@ for each source, all started together), then
           reference's; deepseek's FLOPs at most 1.015x and its bytes at
           most the reference's, arctic-480b's FLOPs at most 1.012x,
           llama-3.2-vision-90b's 1.007x, phi4-mini's 1.03x,
-          xlstm-350m's within 0.1% of the reference's, its wire bytes by
-          kind printed beside the reference's and their total under it.
+          whisper-small's at most the reference's, xlstm-350m's within
+          0.1% of the reference's, its wire bytes by kind printed beside
+          the reference's and their total under it. Each ``long_500k`` cell
+          beside the reference's counts (``REFERENCE_LONG``): bytes and
+          FLOPs at most the reference's, wire bytes at most 1.5x.
           Each decode cell
           beside the reference's counts (``REFERENCE_DECODE``): bytes at
           most the reference's, wire bytes at most 1.5x, FLOPs within 10%
@@ -523,7 +528,7 @@ SURROGATE_SHARDS, SURROGATE_RTOL = 3, 2e-4
 MESH_LOSS_TOL = 1e-5    # 12a: the DTensor path's losses against phase 3's
 DRYRUN_FLOP_TOL = 1e-9  # 13a: traced FLOPs against the real step's
 DRYRUN_PEAK_TOL = 0.10  # 13a: traced peak bytes against 12a's measured one
-DRYRUN_WORKERS = 4      # 13b: cells traced at once, each in its process
+DRYRUN_WORKERS = 6      # 13b: cells traced at once, each in its process
 DRYRUN_CELLS = [        # 13b: (arch, shape, multi_pod)
     ("gemma-7b", "train_4k", False), ("gemma-7b", "prefill_32k", False),
     ("gemma-7b", "decode_32k", False), ("gemma-7b", "train_4k", True),
@@ -548,7 +553,14 @@ DRYRUN_CELLS = [        # 13b: (arch, shape, multi_pod)
     ("whisper-small", "decode_32k", False),
     # 4 heads over model's 16, no cache: the sLSTM / mLSTM products keep
     # their weights where they lie and move the tokens
-    (XLSTM, "decode_32k", False)]
+    (XLSTM, "decode_32k", False),
+    # 1500 frames and 12 heads over model's 16: each encoder projection's
+    # and each cross k and v weight gradient on the rank's TP slice
+    ("whisper-small", "train_4k", False),
+    # one token of one row, which data does not divide: the table looked
+    # up on its d_model slices where it lies, the RG-LRU's products split
+    # over data
+    ("recurrentgemma-2b", "long_500k", False), (XLSTM, "long_500k", False)]
 # 13b: every row's last accepted counts a device on the card (NVIDIA H100
 # 80GB HBM3): GiB, FLOPs, collective wire bytes by kind. Each row's
 # FLOPs equal at 4 digits (to ``CPU_ROUTE_FLOPS`` where it has a count
@@ -565,12 +577,12 @@ CARD_BEFORE = {
     ("gemma-7b", "train_4k", True): (10.14, 1.4532e14, {
         "all-gather": 2.423e9, "all-reduce": 5.526e10, "all-to-all": 5.161e6,
         "reduce-scatter": 1.185e9}),
-    ("arctic-480b", "train_4k", False): (34.79, 7.2701e14, {
+    ("arctic-480b", "train_4k", False): (34.79, 7.2175e14, {
         "all-gather": 6.413e11, "all-reduce": 1.303e11, "all-to-all": 2.26e10,
         "reduce-scatter": 1.464e11}),
-    ("llama-3.2-vision-90b", "train_4k", False): (72.06, 3.5416e15, {
-        "all-gather": 5.17e10, "all-reduce": 1.218e12, "all-to-all": 1.26e9,
-        "reduce-scatter": 3.35e10}),
+    ("llama-3.2-vision-90b", "train_4k", False): (72.06, 3.5255e15, {
+        "all-gather": 5.1763e10, "all-reduce": 1.218e12, "all-to-all": 1.26e9,
+        "reduce-scatter": 3.2889e10}),
     ("phi4-mini-3.8b", "train_4k", False): (5.79, 1.6850e14, {
         "all-gather": 6.065e10, "all-reduce": 5.078e10, "all-to-all": 2.77e9,
         "reduce-scatter": 1.006e10}),
@@ -580,7 +592,7 @@ CARD_BEFORE = {
     (XLSTM, "train_4k", False): (134.76, 5.8024e13, {
         "all-gather": 5.0485e8, "all-reduce": 1.0435e9,
         "all-to-all": 6.6355e6, "reduce-scatter": 3.2993e7}),
-    ("deepseek-moe-16b", "train_4k", False): (20.68, 1.3503e14, {
+    ("deepseek-moe-16b", "train_4k", False): (20.68, 1.3371e14, {
         "all-gather": 3.377e11, "all-reduce": 7.206e10, "all-to-all": 1.118e10,
         "reduce-scatter": 8.937e10}),
     ("phi4-mini-3.8b", "decode_32k", False): (2.51, 1.4809e10, {
@@ -603,15 +615,16 @@ CARD_BEFORE = {
 BYTES_SLACK = 1.01
 # 13b: FLOPs a device on the CPU route (``python -m
 # repro_torch.launch.dryrun --device cpu``) of the rows this tree moved or
-# the card has not traced: llama-3.2-vision-90b's cross k and v take their
-# weights' gradients on the rank's 1/16 (``layers.project_source``), and a
-# MoE block's remat replay runs none of its output products
-# (``layers.output_products``: deepseek-moe-16b's shared experts' ``wo``,
-# arctic-480b's combine). Each such row's FLOPs equal these at 4 digits,
-# its bytes held to ``CARD_BEFORE``'s.
-CPU_ROUTE_FLOPS = {("llama-3.2-vision-90b", "train_4k", False): 3.5255e15,
-                   ("deepseek-moe-16b", "train_4k", False): 1.3371e14,
-                   ("arctic-480b", "train_4k", False): 7.2175e14}
+# the card has not traced: whisper-small's encoder projections and cross k
+# and v take their weight gradients on the rank's TP slice
+# (``layers.split_weight_grad``), the one-token step of one row looks up
+# the table on its d_model slices (``transformer._embed_on_shards``) and
+# splits the RG-LRU's products over data (``layers.split_whole_batch``).
+# Each such row's FLOPs equal these at 4 digits, its bytes held to
+# ``CARD_BEFORE``'s where it has them.
+CPU_ROUTE_FLOPS = {("whisper-small", "train_4k", False): 2.1575e13,
+                   ("recurrentgemma-2b", "long_500k", False): 4.5384e7,
+                   (XLSTM, "long_500k", False): 1.2423e7}
 # 13b: absolute limits a device. arctic-480b, llama-3.2-vision-90b,
 # phi4-mini-3.8b and starcoder2-7b in GiB (arctic's under an 80 GB card's
 # 74.5; phi4's and starcoder2's the reference's, since each remat group
@@ -632,16 +645,20 @@ GATHER_SCATTER_LIMIT = {"arctic-480b": (1.846e12 + 1.296e12) / 2}
 # under the reference's too) and arctic-480b (their remat replays run no
 # output product, tests/test_torch_moe_shards.py and
 # tests/test_torch_replay_cuts.py), llama-3.2-vision-90b (its cross k and v
-# run where XLA's do) and phi4-mini-3.8b (its k and v products too).
+# run where XLA's do) and phi4-mini-3.8b (its k and v products too);
+# whisper-small's at most the reference's (the decoder's fewer products,
+# tests/test_torch_whisper_shards.py).
 REFERENCE_TRAIN = {"deepseek-moe-16b": (37.09, 1.3179e14, 6.893e11),
                    "arctic-480b": (57.86, 7.1333e14, 1.493e12),
                    "gemma-7b": (36.64, 2.8678e14, 3.822e9),
                    "phi4-mini-3.8b": (12.85, 1.6520e14, 1.706e11),
                    "starcoder2-7b": (16.52, 2.6904e14, 2.442e11),
                    "llama-3.2-vision-90b": (156.68, 3.5035e15, 9.341e10),
-                   XLSTM: (205.60, 5.8024e13, 1.220e9)}
+                   XLSTM: (205.60, 5.8024e13, 1.220e9),
+                   "whisper-small": (8.27, 2.3005e13, 1.488e10)}
 TRAIN_RATIO = {"deepseek-moe-16b": 1.015, "arctic-480b": 1.012,
-               "llama-3.2-vision-90b": 1.007, "phi4-mini-3.8b": 1.03}
+               "llama-3.2-vision-90b": 1.007, "phi4-mini-3.8b": 1.03,
+               "whisper-small": 1.0}
 # 13b train: FLOPs within this relative distance of the reference's
 # (xlstm-350m: every projection's weight gradient on the rank's TP slice,
 # as XLA's partitioner takes it), and the reference's wire bytes by kind,
@@ -662,6 +679,13 @@ REFERENCE_DECODE = {"gemma-7b": (25.99, 1.6054e10, 1.498e9),
                     "whisper-small": (3.49, 1.3979e9, 3.789e7),
                     XLSTM: (0.29, 6.1991e8, 5.96e7)}
 DECODE_WIRE_LIMIT = 1.5
+# 13b long: the reference's ``long_500k`` counts a device on 16 x 16 (as
+# ``REFERENCE_DECODE``'s): GiB, FLOPs, collective wire bytes. Each row's
+# bytes and FLOPs at most the reference's (xlstm-350m's fewer FLOPs: its
+# one-token projections split their contraction over TP too), its wire
+# bytes at most ``DECODE_WIRE_LIMIT`` times.
+REFERENCE_LONG = {"recurrentgemma-2b": (0.5074, 4.6612e7, 8.101e5),
+                  XLSTM: (0.1061, 2.4035e7, 1.131e6)}
 DECODE_FLOP_RTOL = {"gemma-7b": 0.0, "phi4-mini-3.8b": 0.02}   # else 0.10
 # gemma-7b decode's all-to-all (each layer's cache to heads, 7.046e9) and
 # all-gather (4.137e9, 2.93 GiB of it the fp32 embedding table) must fall
@@ -2904,15 +2928,19 @@ def production_cells_phase() -> None:
     tensors, ``DRYRUN_WORKERS`` cells at a time in spawned processes (a
     trace is host Python), each beside its last accepted card counts
     (``card_before_row``), each decode cell beside the reference's
-    (``decode_row``), in ``DRYRUN_CELLS``' order."""
+    (``decode_row``), in ``DRYRUN_CELLS``' order. The longest traces are
+    submitted first (xlstm-350m ``train_4k``'s two, then every other
+    ``train_4k``), so that none starts last."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     pool = ProcessPoolExecutor(DRYRUN_WORKERS,
                                mp_context=multiprocessing.get_context("spawn"))
+    first = sorted(DRYRUN_CELLS, key=lambda c: (c[:2] != (XLSTM, "train_4k"),
+                                                c[1] != "train_4k"))
     try:
-        traced = [pool.submit(_trace_cell, *cell) for cell in DRYRUN_CELLS]
-        for (arch, shape, multi_pod), fut in zip(DRYRUN_CELLS, traced):
-            production_cell_row(arch, shape, multi_pod, fut.result())
+        traced = {cell: pool.submit(_trace_cell, *cell) for cell in first}
+        for cell in DRYRUN_CELLS:
+            production_cell_row(*cell, traced[cell].result())
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
@@ -2958,6 +2986,8 @@ def production_cell_row(arch: str, shape: str, multi_pod: bool,
           flush=True)
     if shape == "decode_32k":
         decode_row(head, arch, rec)
+    if shape == "long_500k":
+        long_row(head, arch, rec)
     if rec["kind"] == "train" and arch in REFERENCE_TRAIN \
             and not multi_pod:
         reference_train_row(head, arch, rec)
@@ -3066,6 +3096,23 @@ def decode_row(head: str, arch: str, rec: dict) -> None:
             require(coll.get(kind, 0) < limit,
                     f"{head}: {kind} wire bytes {coll.get(kind, 0):.4e} not "
                     f"under {limit:.1e}")
+
+
+def long_row(head: str, arch: str, rec: dict) -> None:
+    """13b: a ``long_500k`` cell beside the reference's counts
+    (``REFERENCE_LONG``), gated on them."""
+    gib = rec["memory"]["total_bytes_per_device"] / 2**30
+    flops = rec["cost"]["flops"]
+    wire = rec["collectives"]["total_wire_bytes"]
+    ref = REFERENCE_LONG[arch]
+    print(f"{head}: {gib:.4f} GiB, {flops:.4e} FLOPs, {wire:.4e} wire "
+          f"bytes a device; the reference's {ref[0]:.4f} GiB, {ref[1]:.4e}, "
+          f"{ref[2]:.4e} (FLOPs ratio {flops / ref[1]:.4f}, wire ratio "
+          f"{wire / ref[2]:.3f})", flush=True)
+    require(flops <= ref[1], f"{head}: FLOPs above the reference's")
+    require(gib <= ref[0], f"{head}: bytes above the reference's")
+    require(wire <= DECODE_WIRE_LIMIT * ref[2],
+            f"{head}: wire bytes over {DECODE_WIRE_LIMIT}x the reference's")
 
 
 def paper_phase(card: str) -> None:

@@ -221,7 +221,8 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0) -> Params:
 
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return einsum("...f,fd->...d", mlp_hidden(p, x, cfg), p["wo"].to(x.dtype))
+    eq, h = "...f,fd->...d", mlp_hidden(p, x, cfg)
+    return einsum(eq, h, cast_cut(eq, h, p["wo"], x.dtype))
 
 
 def mlp_hidden(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -268,8 +269,13 @@ def _qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor):
     there: with q over the sequence, k's product runs on the shard too
     (``_shard_kv`` gathers it) and v's stays whole; with q over heads,
     both stay whole. The whole ones take their backward on the shard
-    (:func:`project_whole`). Decode's one token and a sequence that does
-    not divide pass through.
+    (:func:`project_whole`). Decode's one token passes through
+    (:func:`project_heads`). A sequence that does not divide TP
+    (whisper-small's encoder, 1500 frames) runs every product whole, each
+    weight gradient on the rank's TP slice (:func:`split_weight_grad`), as
+    XLA's encoder backward takes them on 16 x 16 (``dot.594``, ``.596``,
+    ``.597``: ``f32[768,48]`` over 24,000 rows; the output product's
+    ``dot.595``, ``f32[48,768]``, is :func:`attention_block`'s).
 
     Cross-attention's k and v (``kv_src`` is not x) where the kv heads do
     not divide TP (:func:`project_source`) follow what XLA's compile of
@@ -282,25 +288,30 @@ def _qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor):
     replay whole (``dot.482`` / ``.483``, ``dot.613`` / ``.614``,
     ``f32[25616,8192]`` by ``f32[8192,1024]``) with each weight gradient
     on 1/16 (``dot.572`` / ``.576``, ``f32[1024,512]``). whisper-small (12
-    kv heads, its encoder's output (B, 1500, 768) as the source) keeps
-    them whole (``prefill_32k``: ``dot.104`` / ``.105``, ``f32[3000,768]``,
-    the contraction 768 whole). The rule that fits both: without grad the
+    kv heads, its encoder's output (B, 1500, 768) as the source) keeps the
+    forward whole (``prefill_32k``: ``dot.104`` / ``.105``,
+    ``f32[3000,768]``, the contraction 768 whole) and in ``train_4k``
+    takes each weight gradient on 1/16 too (``dot.573`` / ``.576``,
+    ``f32[768,48]`` over 24,000 rows), though its source takes a gradient.
+    The rule that fits both: with grad the weight's gradient is taken on
+    the rank's TP slice, whatever the source does; without grad the
     contraction is split where the source's rows a device are fewer than
-    d (3202 < 8192; whisper's 3000 > 768); with grad the weight's gradient
-    is taken on the rank's slice where the source takes no gradient
-    (llama's stub embeddings; whisper's encoder output takes one)."""
+    d (3202 < 8192; whisper's 3000 > 768), else the product stays
+    whole."""
     dt = x.dtype
     tp = max(role_size("tp"), 1)
     wq = p["wq"].to(dt)
     wk, wv = (shard_over(p[n].to(dt), 1, "tp") for n in ("wk", "wv"))
     seq = placements_over(x, x.ndim - 2, "sp")
+    heads = (functools.partial(split_weight_grad, "...sd,dhk->...shk")
+             if seq is None and x.shape[1] > 1 else project_heads)
     split_q = wq.shape[1] % tp > 0
     x_s = redistribute(x, seq) if split_q and seq is not None else x
-    q = project_heads(x_s, wq)
+    q = heads(x_s, wq)
     if kv_src is not x:
         return q, project_source(kv_src, wk), project_source(kv_src, wv)
     if seq is None or wk.shape[1] % tp == 0:
-        return q, project_heads(x, wk), project_heads(x, wv)
+        return q, heads(x, wk), heads(x, wv)
     if not split_q:
         return q, project_whole(x, wk, seq), project_whole(x, wv, seq)
     return q, project_heads(x_s, wk), project_whole(x, wv, seq, x_s)
@@ -348,17 +359,15 @@ def project_source(src: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Cross-attention's k or v, ``src @ w`` into heads: (B, T, d) by (d,
     Kv, D). Where the kv heads do not divide TP it runs where XLA runs it
     (``_qkv``'s rule): with grad, whole, its weight's gradient on the
-    rank's TP slice (:func:`split_weight_grad`) where the source takes no
-    gradient; without grad, split over TP (:func:`split_source`) where
-    the source's rows a device are fewer than d. Else, off a mesh and at
-    TP = 1 it is :func:`project_heads`."""
+    rank's TP slice (:func:`split_weight_grad`); without grad, split over
+    TP (:func:`split_source`) where the source's rows a device are fewer
+    than d. Else, off a mesh and at TP = 1 it is :func:`project_heads`."""
     eq = "...sd,dhk->...shk"
     if not isinstance(src, DTensor) or w.shape[1] % max(
             role_size("tp"), 1) == 0:
         return project_heads(src, w)
     if torch.is_grad_enabled() and (src.requires_grad or w.requires_grad):
-        return (project_heads(src, w) if src.requires_grad
-                else split_weight_grad(eq, src, w))
+        return split_weight_grad(eq, src, w)
     if math.prod(src.to_local().shape[:-1]) < src.shape[-1]:
         return split_source(eq, src, w)
     return project_heads(src, w)
@@ -534,6 +543,26 @@ def output_products(products):
                            *_keep_pairs(*placed))
 
 
+def cast_cut(eq: str, x: torch.Tensor, w: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """``w.to(dtype)`` for the product ``einsum(eq, x, w)``. Without grad,
+    a DTensor ``w`` whole on a mesh dim where the product takes a slice of
+    it is cut there first (no data moves), so that a rank casts only the
+    rows it multiplies, as XLA fuses the convert into the slice that feeds
+    the dot: recurrentgemma-2b's tail MLP ``wo`` is whole on every rank,
+    (7680, 2560) fp32, of which a rank multiplies (480, 2560). With grad
+    the cut's backward would gather w's gradient in fp32, not in
+    ``dtype``, so w is cast whole."""
+    if (torch.is_grad_enabled() or not isinstance(x, DTensor)
+            or not isinstance(w, DTensor)):
+        return w.to(dtype)
+    # a pending sum of x counts as whole, as :func:`einsum` reduces it
+    (_, pw), _, _ = einsum_layout(eq, x, w)
+    cut = [q if p == Replicate() and type(q) is Shard else p
+           for p, q in zip(w.placements, pw)]
+    return redistribute(w, cut).to(dtype)
+
+
 def _one_token_whole_heads(x: torch.Tensor, heads: int) -> bool:
     """Whether ``x`` (B, S, ...) is decode's one token on a mesh whose TP
     axis ``heads`` do not divide."""
@@ -557,6 +586,44 @@ def split_contraction(eq: str, x: torch.Tensor, w: torch.Tensor,
                          for px, pw in zip(x.placements, w.placements)])
     x, w = shard_over(x, d, "tp"), shard_over(w, w_dim, "tp")
     return redistribute(einsum(eq, x, w), batch)
+
+
+def split_whole_batch(eq: str, x: torch.Tensor, w: torch.Tensor,
+                      w_dim: int = 0) -> torch.Tensor:
+    """``einsum(eq, x, w)`` of a one-token DTensor ``x`` whose last dim is
+    contracted against w's dim ``w_dim``, split where the batch is not:
+    on each batch mesh dim where x's batch is whole (it does not divide
+    there, as ``long_500k``'s B = 1) and w is whole, x and w are cut to
+    the rank's slice of the contracted dim (slices of whole tensors), each
+    rank sums its slice and one all-reduce there adds the sums, as XLA
+    runs recurrentgemma-2b's one-token RG-LRU products (``dot.197``,
+    ``f32[160]`` over 160 rows, then ``all-reduce.210`` over ``data``).
+    x's shard of the contracted dim on another mesh dim is gathered there
+    first. Where no batch mesh dim qualifies (a batch that divides), off a
+    mesh, it is :func:`einsum`."""
+    mc = current_mesh()
+    if mc is None or not isinstance(x, DTensor) or not isinstance(
+            w, DTensor):
+        return einsum(eq, x, w)
+    d = x.ndim - 1
+    x = reduce_partials(x)
+    names = list(mc.mesh.mesh_dim_names)
+    batch = {names.index(a) for a in mc.rules.resolve("batch", mc.mesh)
+             or ()}
+    whole, cut = Replicate(), Shard(d)
+    xp, wp = list(x.placements), list(w.placements)
+    n = 1
+    for m, size in enumerate(mc.mesh.shape):
+        if (m in batch and xp[m] in (whole, cut) and wp[m] == whole
+                and x.shape[d] % (n * size) == 0):
+            xp[m], wp[m] = cut, Shard(w_dim)
+            n *= size
+        elif xp[m] == cut and wp[m] != Shard(w_dim):
+            xp[m] = whole
+    if n == 1:
+        return einsum(eq, x, w)
+    return reduce_partials(einsum(eq, redistribute(x, xp),
+                                  redistribute(w, wp)))
 
 
 def split_source(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -818,7 +885,10 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, window: int = 0,
                     use_rope: bool = True,
                     causal: bool = True) -> torch.Tensor:
-    """Self-attention over x: (B, S, d)."""
+    """Self-attention over x: (B, S, d). Where TP splits neither the
+    output product's operands nor its output (whisper-small's encoder),
+    the product's weight gradient is taken on the rank's TP slice
+    (:func:`split_weight_grad`), as XLA's ``dot.595``."""
     q, k, v = _qkv(p, x, x)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -835,8 +905,8 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 if causal else None)
         out = mha_logits_to_out(q, k, v, mask, cfg)
     out = shard(out, "act_heads")
-    return gather_like(
-        einsum("...shk,hkd->...sd", out, p["wo"].to(x.dtype)), x, x.ndim - 2)
+    return gather_like(split_weight_grad("...shk,hkd->...sd", out,
+                                         p["wo"].to(x.dtype)), x, x.ndim - 2)
 
 
 def gate_output(p: Params, y: torch.Tensor) -> torch.Tensor:

@@ -35,8 +35,9 @@ from repro_torch.device import require_device
 from repro_torch.kernels.ref import rglru_scan_ref
 from repro_torch.parallel.sharding import einsum, shard
 from .config import ModelConfig
-from .layers import (Params, _one_token_whole_heads, _weak, dense_init,
-                     gather_tokens, split_contraction, split_weight_grad)
+from .layers import (Params, _one_token_whole_heads, _weak, cast_cut,
+                     dense_init, gather_tokens, split_contraction,
+                     split_weight_grad, split_whole_batch)
 
 _RGLRU_C = 8.0
 
@@ -65,14 +66,15 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _rglru_coeffs(p: Params, u: torch.Tensor):
+def _rglru_coeffs(p: Params, u: torch.Tensor, product=einsum):
     """u: (..., r) pre-activation inputs -> (a, b) recurrence coefficients,
-    both fp32."""
+    both fp32. ``product`` computes the gates' products (the decode step's
+    split their contraction where the batch is whole)."""
     uf = u.float()
-    rgate = torch.sigmoid(einsum("...r,rk->...k", uf,
-                                 p["rg_gates"]["wa"]))
-    igate = torch.sigmoid(einsum("...r,rk->...k", uf,
-                                 p["rg_gates"]["wi"]))
+    rgate = torch.sigmoid(product("...r,rk->...k", uf,
+                                  p["rg_gates"]["wa"]))
+    igate = torch.sigmoid(product("...r,rk->...k", uf,
+                                  p["rg_gates"]["wi"]))
     log_a = -_RGLRU_C * _softplus(p["rg_lambda"]) * rgate
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -130,17 +132,21 @@ def step_rglru(p: Params, x: torch.Tensor, state: Params,
     """x: (B, 1, d); state: {h: (B,R), conv: (B,W-1,R)}, both fp32.
 
     Returns ``(out, new_state)``; the carry ``h`` stays fp32 and the conv
-    state keeps the fp32 inputs."""
+    state keeps the fp32 inputs. Over a mesh whose batch axes the batch
+    does not divide, the input and gate products split their contraction
+    there (:func:`split_whole_batch`)."""
     dt = x.dtype
-    u = einsum("...d,dr->...r", x, p["rg_in"]["wx"].to(dt))
-    gate = F.gelu(einsum("...d,dr->...r", x, p["rg_in"]["wy"].to(dt)),
+    u = split_whole_batch("...d,dr->...r", x, p["rg_in"]["wx"].to(dt))
+    gate = F.gelu(split_whole_batch("...d,dr->...r", x,
+                                    p["rg_in"]["wy"].to(dt)),
                   approximate="tanh")
     u_seq = _causal_conv(u, p["conv"], state=state["conv"])
     new_conv = torch.cat([state["conv"][:, 1:], u.float()], dim=1)
-    a, b = _rglru_coeffs(p, u_seq)
+    a, b = _rglru_coeffs(p, u_seq, split_whole_batch)
     h = a[:, 0] * state["h"] + b[:, 0]                    # (B, R)
     y = h[:, None].to(dt) * gate
-    out = einsum("...r,rd->...d", y, p["rg_out"]["wo"].to(dt))
+    eq = "...r,rd->...d"
+    out = einsum(eq, y, cast_cut(eq, y, p["rg_out"]["wo"], dt))
     return out, {"h": h, "conv": new_conv}
 
 

@@ -391,10 +391,14 @@ def _embed_on_shards(tokens: DTensor, table: DTensor) -> DTensor:
     would come whole, with the global batch's rows, to every rank.
 
     For decode's one token a row the ids come to the table instead, as
-    XLA moves them: on a mesh dim that splits the ids and the table's
-    d_model, the ids are gathered, each rank looks up its d_model slice of
-    every row, and the rows go back to the ids' shards (an all-to-all of a
-    token's width)."""
+    XLA moves them: on a mesh dim that splits the table's d_model, the ids
+    are gathered (or are whole already, where the batch does not divide
+    that dim: ``long_500k``'s one row), each rank looks up its d_model
+    slice of every row, and the rows go back to the ids' shards (an
+    all-to-all of a token's width). Whole ids leave the rows on the d_model
+    slices, as XLA's ``long_500k`` lookup leaves them (the rank's
+    ``f32[1,1,160]`` of its (16000, 160) table shard, summed over the vocab
+    shards by one all-reduce): no rank gathers the table."""
     mesh = table.device_mesh
     whole = Replicate()
     one = tokens.shape[1] == 1
@@ -403,7 +407,7 @@ def _embed_on_shards(tokens: DTensor, table: DTensor) -> DTensor:
     split, index = 1, 0
     for size, coord, p, q in zip(mesh.shape, mesh.get_coordinate(),
                                  tokens.placements, table.placements):
-        if type(p) is Shard and q == Shard(1) and one:
+        if q == Shard(1) and one:
             ids_pl.append(whole)
             table_pl.append(q)
             grad_pl.append(q)
