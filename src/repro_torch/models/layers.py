@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed._functional_collectives as funcol
@@ -696,16 +696,22 @@ def mha_logits_to_out(q, k, v, mask, cfg: Optional[ModelConfig],
                       softcap: float = 0.0) -> torch.Tensor:
     """Grouped-query attention core. q: (B,S,H,D); k,v: (B,T,Kv,D).
 
-    mask: broadcastable to (B, 1, S, T) boolean (True = attend) or None.
-    ``softcap > 0`` caps the scores at ``softcap * tanh(logits / softcap)``.
-    On DTensors it runs on each rank's shards (``_attention_on_shards``).
+    mask: broadcastable to (B, 1, S, T) boolean (True = attend), None, or
+    ``rows(device, rows=(first, count))`` giving those query rows of it
+    (:func:`causal_mask`'s), which on DTensors each rank calls for its own
+    q rows alone. ``softcap > 0`` caps the scores at ``softcap *
+    tanh(logits / softcap)``. On DTensors it runs on each rank's shards
+    (``_attention_on_shards``).
     """
     if isinstance(q, DTensor):
-        mask = None if mask is None else constant_like(mask, q)
+        if isinstance(mask, torch.Tensor):
+            mask = constant_like(mask, q)
         return _attention_on_shards(
             lambda q, k, v, m, _: mha_logits_to_out(q, k, v, m, cfg, softcap),
             q, k, v, mask,
             lambda q, k, v, m: softmax_partials(q, k, v, m, cfg, softcap))
+    if callable(mask):
+        mask = mask(q.device, rows=(0, q.shape[1]))
     logits = _masked_logits(q, k, mask, cfg, softcap)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
@@ -771,10 +777,12 @@ def _attention_on_shards(fn, q, k, v, mask=None, partials=None):
     heads or the sequence; k and v over batch and the heads they share with
     q, else whole and cut to the rank's kv heads; a mask (1, 1, S, T) over
     its query rows wherever q is over the sequence; ``q_offset`` the rank's
-    first query's key position. DTensor cannot split the heads into (Kv, G)
-    groups or flatten them with the batch for its ``bmm`` where they are
-    sharded. k's and v's gradients are partial sums wherever q is sharded
-    and they are whole.
+    first query's key position. A mask given as its rows' function
+    (:func:`mha_logits_to_out`) is built by each rank for its q rows alone,
+    so that no rank holds the whole (S, T) mask. DTensor cannot split the
+    heads into (Kv, G) groups or flatten them with the batch for its
+    ``bmm`` where they are sharded. k's and v's gradients are partial sums
+    wherever q is sharded and they are whole.
 
     Where k and v arrive sharded over their sequence and q does not (the
     decode cache, ``AttentionLayout.kv_seq``), they stay so and each rank
@@ -784,6 +792,9 @@ def _attention_on_shards(fn, q, k, v, mask=None, partials=None):
     That layout has no backward, and a core without ``partials`` refuses
     it rather than gather the cache."""
     lay = attention_placements(q, k, partial_softmax=partials is not None)
+    rows = mask if callable(mask) else None
+    if rows is not None:
+        mask, first = None, lay.q_offset - (k.shape[1] - q.shape[1])
     mask_pl = None if mask is None else tuple(
         Shard(2) if p == Shard(1) and mask.shape[2] == q.shape[1]
         else Shard(3) if m in lay.kv_seq else Replicate()
@@ -805,6 +816,8 @@ def _attention_on_shards(fn, q, k, v, mask=None, partials=None):
 
     def local(q, k, v, mask):
         k, v = lay.kv_slice(k), lay.kv_slice(v)
+        if rows is not None:
+            mask = rows(q.device, rows=(first, q.shape[1]))
         if groups:
             out = combine_partials(*partials(q, k, v, mask), over("max"),
                                    over("sum")).to(q.dtype)
@@ -870,10 +883,13 @@ def chunked_attention(q, k, v, cfg: ModelConfig, causal: bool = True,
     return out.to(q.dtype)
 
 
-def causal_mask(s: int, t: int, device: torch.device,
-                window: int = 0) -> torch.Tensor:
-    """(1, 1, s, t) boolean mask, True = attend."""
-    qi = torch.arange(s, device=device)[:, None]
+def causal_mask(s: int, t: int, device: torch.device, window: int = 0,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """(1, 1, s, t) boolean mask, True = attend; with ``rows`` = (first,
+    count) only those query rows, (1, 1, count, t), bit-equal to that
+    slice of the whole mask."""
+    first, count = rows or (0, s)
+    qi = torch.arange(first, first + count, device=device)[:, None]
     ki = torch.arange(t, device=device)[None, :]
     m = ki <= qi
     if window > 0:
@@ -901,8 +917,10 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
           and x.shape[1] > cfg.attention_chunk):
         out = chunked_attention(q, k, v, cfg, causal=True, window=window)
     else:
-        mask = (causal_mask(x.shape[1], x.shape[1], x.device, window=window)
-                if causal else None)
+        # the mask as its rows' function: on a mesh each rank builds the
+        # rows of its own queries (the window's band over all keys)
+        mask = (functools.partial(causal_mask, x.shape[1], x.shape[1],
+                                  window=window) if causal else None)
         out = mha_logits_to_out(q, k, v, mask, cfg)
     out = shard(out, "act_heads")
     return gather_like(split_weight_grad("...shk,hkd->...sd", out,

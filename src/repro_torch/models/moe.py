@@ -39,9 +39,10 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.parallel.sharding import (constant_like, current_mesh,
-                                           einsum, local_map_calls, map_local,
+                                           einsum, gather_like,
+                                           local_map_calls, map_local,
                                            on_group_shards, replicate_dim,
-                                           shard, shard_over)
+                                           role_size, shard, shard_over)
 from .config import ModelConfig
 from .layers import (Params, apply_mlp, dense_init, init_mlp,
                      mlp_hidden, output_products)
@@ -197,6 +198,23 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return out, aux
 
 
+def _router_groups(xg, x, cfg: ModelConfig):
+    """The groups ``xg`` (n, g, d) of x (B, S, d) that an inference step's
+    router runs on: the rank's slice of them over the TP axes where the
+    block's attention ran on q's sequence shard (its heads do not divide
+    TP) and the rank holds one row of x, so that the slice is the rank's
+    sequence slice; else ``xg``. XLA keeps the residual stream on that
+    shard through the norm into the router there, and gathers it for the
+    dispatch (arctic-480b ``prefill_32k`` on 2 x 16 x 16: ``dot.55``
+    ``f32[2048,128]``, 2 groups a device). With two rows or more a rank's
+    groups are not one slice of its sequence shards, and XLA gathers the
+    sequence before the reshape (16 x 16: ``f32[65536,128]``)."""
+    if (not isinstance(x, DTensor) or x.to_local().shape[0] != 1
+            or cfg.n_heads % max(role_size("tp"), 1) == 0):
+        return xg
+    return shard_over(xg, 0, "tp")
+
+
 def _routed(p: Params, x: torch.Tensor, cfg: ModelConfig):
     """The routed experts of x (B, S, d): (their outputs (n, E, C, d), the
     combine (n, g, E, C) in x's dtype, aux), the routing's temporaries
@@ -207,13 +225,16 @@ def _routed(p: Params, x: torch.Tensor, cfg: ModelConfig):
     xg = x.reshape(n_groups, g, d)
 
     w = p["router"]["w"].to(x.dtype)
-    if w.requires_grad:
+    xr = xg
+    if torch.is_grad_enabled() and w.requires_grad:
         # a step that takes the router's gradient: XLA splits the router's
         # products (forward and both gradients) over the experts' TP shards
         # and gathers the logits; an inference step computes them whole,
-        # as XLA does
+        # as XLA does, on the groups it holds (:func:`_router_groups`)
         w = shard_over(w, 1, "tp")
-    logits = replicate_dim(einsum("ngd,de->nge", xg, w), 2).float()
+    else:
+        xr = _router_groups(xg, x, cfg)
+    logits = replicate_dim(einsum("ngd,de->nge", xr, w), 2).float()
     probs = torch.softmax(logits, dim=-1)
 
     # aux losses (computed over all tokens)
@@ -226,18 +247,25 @@ def _routed(p: Params, x: torch.Tensor, cfg: ModelConfig):
         gates = on_group_shards(functools.partial(_gates, k=m.top_k), probs,
                                 n_out=2)
         gate_vals, gate_idx = gates(probs)                   # (n, g, k)
-        dispatch, combine = _slots_on_expert_shards(
-            gate_idx, gate_vals, m.num_experts, cap)
     else:
         gate_vals, gate_idx = _gates(probs, m.top_k)
-        dispatch, combine = assign_slots(gate_idx, gate_vals, m.num_experts,
-                                         cap)
 
     # one-hot expert assignment per (token, k): (n, g, k, E)
     assign = (gate_idx[..., None] == constant_like(torch.arange(
         m.num_experts, device=x.device), gate_idx)).float()
     ce = assign.sum(2).reshape(-1, m.num_experts).mean(0)
     aux_loss = m.aux_coef * m.num_experts * (me * ce).sum()
+
+    if isinstance(probs, DTensor):
+        # the gates of groups routed on a slice of xg's go back to its
+        # layout (XLA's all-gather of the top-k's (n, g, k))
+        gate_vals, gate_idx = (gather_like(t, xg, 0)
+                               for t in (gate_vals, gate_idx))
+        dispatch, combine = _slots_on_expert_shards(
+            gate_idx, gate_vals, m.num_experts, cap)
+    else:
+        dispatch, combine = assign_slots(gate_idx, gate_vals, m.num_experts,
+                                         cap)
 
     dt = x.dtype
     spec = "moe_ecd_grouped" if m.dispatch_local else "moe_ecd"

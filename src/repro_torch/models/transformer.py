@@ -42,9 +42,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import require_device
 from repro_torch.parallel.sharding import (constant_like, einsum,
                                            local_map_calls, map_local,
-                                           redistribute, reduce_partials,
-                                           replicate_dim, role_size,
-                                           saved_over, shard)
+                                           move_shards_off, redistribute,
+                                           reduce_partials, replicate_dim,
+                                           role_size, saved_over, shard)
 from repro_torch.tree import leaves, tree_map
 from . import recurrent as rec
 from .config import ModelConfig
@@ -147,13 +147,14 @@ def _checkpoint(fn, first: str, cfg: ModelConfig, x: torch.Tensor, *args):
     XLA's compile of the reference saves the scan's residuals: a slice for
     phi4-mini-3.8b, starcoder2-7b, arctic-480b and whisper-small's decoder,
     whole for the archs whose heads divide TP or whose groups open with a
-    recurrence. XLA's slice is the sequence's; the port's is the rank's
-    batch rows, the same bytes, which come back whole in one all-gather,
-    where a sequence slice takes an all-to-all to dim 0 first
-    (``sharding.redistribution_plan``)."""
+    recurrence. The slice saved is the rank's batch rows where they divide
+    the ``sp`` axes (16 x 16: one row of 16), which come back in one
+    all-gather; else it is the rank's sequence slice, as XLA saves it (2 x
+    16 x 16, where the rank's 8 rows do not split 16 ways), which comes
+    back in one all-gather of dim 1."""
     sliced = (first in _SELF_ATTN + ("xattn",)
               and cfg.n_heads % max(role_size("tp"), 1) > 0)
-    with saved_over(x, 0, "sp") if sliced else contextlib.nullcontext():
+    with saved_over(x, (0, 1), "sp") if sliced else contextlib.nullcontext():
         return checkpoint(fn, x, *args, use_reentrant=False)
 
 
@@ -163,11 +164,13 @@ def _checkpoint(fn, first: str, cfg: ModelConfig, x: torch.Tensor, *args):
 
 
 def _unstack(tree, n: int):
-    """Per-group views of a stacked tree (``unbind``: one gradient buffer)."""
+    """Per-group views of a stacked tree (``unbind``: one gradient buffer);
+    a leaf sharded over its groups first moves that shard to another dim
+    (``sharding.move_shards_off``)."""
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
-    return list(torch.unbind(replicate_dim(tree, 0), 0))
+    return list(torch.unbind(move_shards_off(tree, 0), 0))
 
 
 def _stacked(n: int, draw) -> Params:

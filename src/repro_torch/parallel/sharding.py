@@ -454,20 +454,31 @@ class _Slice:
     requires_grad: bool
 
 
+def _even_slice(x, dims: Tuple[int, ...], role: str
+                ) -> Optional[Tuple[Placement, ...]]:
+    """:func:`placements_over` of the first of ``dims`` whose shards over
+    every mesh dim would be even, or None."""
+    for dim in dims:
+        placements = placements_over(x, dim, role)
+        if placements is not None and x.shape[dim] % math.prod(
+                n for n, p in zip(x.device_mesh.shape, placements)
+                if p == Shard(dim)) == 0:
+            return placements
+    return None
+
+
 @contextlib.contextmanager
-def saved_over(x, dim: int, role: str):
+def saved_over(x, dims: Tuple[int, ...], role: str):
     """Within the block, autograd saves the DTensor ``x`` as its rank's
-    slice of tensor dim ``dim`` over ``role``'s mesh axes
-    (:func:`placements_over`: no data moves, a copy of 1/n of x's local
-    bytes) and gathers it back to x's placements when the saved tensor is
-    unpacked. A checkpoint's input so saved is whole in the first forward
-    and gathered once for the replay, as XLA keeps a scan's residuals. x
-    itself is not held. Where :func:`placements_over` gives None, or the
-    dim's shards would not be even, x is saved as it is."""
-    placements = placements_over(x, dim, role)
-    if placements is None or x.shape[dim] % math.prod(
-            n for n, p in zip(x.device_mesh.shape, placements)
-            if p == Shard(dim)):
+    slice over ``role``'s mesh axes of the first tensor dim of ``dims``
+    that splits evenly (:func:`placements_over`: no data moves, a copy of
+    1/n of x's local bytes) and gathers it back to x's placements when the
+    saved tensor is unpacked. A checkpoint's input so saved is whole in the
+    first forward and gathered once for the replay, as XLA keeps a scan's
+    residuals. x itself is not held. Where no dim of ``dims`` splits
+    evenly, x is saved as it is."""
+    placements = _even_slice(x, dims, role)
+    if placements is None:
         yield
         return
     ref = weakref.ref(x)
@@ -544,6 +555,27 @@ def replicate_dim(x, dim: int):
         return x
     return redistribute(x, [Replicate() if p == Shard(dim) else p
                             for p in x.placements])
+
+
+def move_shards_off(x, dim: int):
+    """``x`` with tensor dim ``dim`` whole on every rank: each mesh dim
+    that shards it moves its shard to the first other tensor dim that no
+    mesh dim shards and that it divides (an all-to-all), else gathers it
+    (an all-gather); anything else passes through. XLA so takes a stacked
+    parameter sharded over its layers into its scan (starcoder2-7b
+    ``decode_32k``: ``all-to-all.8``, the stacked ``mlp/wo`` from its
+    layers to its d_ff over ``model``), where :func:`replicate_dim` would
+    hold every layer's slice whole on each rank."""
+    if not isinstance(x, DTensor) or Shard(dim) not in x.placements:
+        return x
+    placements = list(x.placements)
+    for m, size in enumerate(x.device_mesh.shape):
+        if placements[m] != Shard(dim):
+            continue
+        spare = [d for d in range(x.ndim) if d != dim
+                 and Shard(d) not in placements and x.shape[d] % size == 0]
+        placements[m] = Shard(spare[0]) if spare else Replicate()
+    return redistribute(x, placements)
 
 
 def write_slot(cache: torch.Tensor, dim: int, index: torch.Tensor,

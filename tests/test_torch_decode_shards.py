@@ -21,7 +21,13 @@ unsharded port and the reference.
   reference's ``serve_step`` jitted on 4 forced host devices with
   ``AxisType.Auto`` axes, at 1e-5.
 * The production ``decode_32k`` cells on 16 x 16 (256 fake ranks) against
-  the reference's counts, xlstm-350m's on 2 x 16 x 16 too.
+  the reference's counts, xlstm-350m's on 2 x 16 x 16 too. starcoder2-7b's
+  32 layers split over ``model``: its stacked ``mlp/wo`` goes into the
+  scan by one all-to-all from its layers to its d_ff, as XLA's
+  ``all-to-all.8`` (``sharding.move_shards_off``; before, an all-gather of
+  every layer's slice, 1.321x the reference's wire bytes with the
+  all-to-all as on the card). On the CPU route gloo's fallback gathers
+  that all-to-all, and the test names the excess.
 """
 import json
 import os
@@ -418,9 +424,13 @@ REFERENCE_DECODE = {   # arch: (GiB, FLOPs, wire bytes)
     "recurrentgemma-2b": (0.76, "3.764e+09", 4.423e8),
     "whisper-small": (3.49, "1.398e+09", 3.789e7),
     "xlstm-350m": (0.29, "6.199e+08", 5.96e7),
+    "granite-8b": (8.76, "1.772e+10", 1.324e9),
+    "starcoder2-7b": (4.11, "2.703e+10", 1.069e9),
+    "arctic-480b": (16.30, "6.311e+10", 1.504e9),
 }
 COUNTED = ["gemma-7b", "phi4-mini-3.8b", "recurrentgemma-2b",
-           "whisper-small", "xlstm-350m"]
+           "whisper-small", "xlstm-350m", "granite-8b", "starcoder2-7b",
+           "arctic-480b"]
 WIRE_LIMIT = 1.5       # the port's wire bytes over the reference's, at most
 
 
@@ -493,7 +503,49 @@ def test_no_collective_moves_the_cache(arch, decode_cells):
     assert shapes and not big
 
 
-# xlstm-350m ``decode_32k`` on 2 x 16 x 16 (512 forced host devices, Auto
+def _alltoall_as_on_the_card(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's all-to-all as it runs on a CUDA group (the collective op;
+    the fake group accepts it), where on a CPU mesh it gathers and cuts."""
+    import torch.distributed._functional_collectives as funcol
+    group = funcol._resolve_group((mesh, mesh_dim))
+    return torch.ops._dtensor.shard_dim_alltoall(
+        input, gather_dim, shard_dim, funcol._group_or_group_name(group))
+
+
+def test_starcoder2_decode_wire_bytes_on_the_cards_route(decode_cells,
+                                                         monkeypatch):
+    """starcoder2-7b ``decode_32k`` with DTensor's all-to-all as on the
+    card: wire bytes under the reference's (before 1.4116e9, 1.321x: the
+    stacked ``mlp/wo``, (32, 18432, 4608) fp32 over its layers on
+    ``model``, all-gathered whole over its layers on every rank), its one
+    all-to-all of that stack 15/16 of the rank's slice. The CPU route's
+    excess all-gather over the card's, 7.8078e8 (6.3701e8 of it the
+    stack), is gloo's fallback for the all-to-alls: each gathers the
+    whole of what the all-to-all exchanges, 16 times its wire bytes."""
+    from torch.distributed.tensor import placement_types
+    arch = "starcoder2-7b"
+    cfg, cpu, _ = decode_cells[arch]
+    monkeypatch.setattr(placement_types, "shard_dim_alltoall",
+                        _alltoall_as_on_the_card)
+    with dryrun.fake_process_group(256):
+        mesh = dryrun.make_production_mesh(device_type="cpu")
+        card = dryrun.trace_step(cfg, SHAPES["decode_32k"], mesh)["counts"]
+    stack = 4 * cfg.n_layers * cfg.d_ff * cfg.d_model // 256   # fp32 slice
+    moved = stack * 15 // 16
+    by_kind = card.collectives.bytes_by_kind
+    excess = (cpu.collectives.bytes_by_kind["all-gather"]
+              - by_kind["all-gather"])
+    print(f"\n{arch} decode_32k, all-to-all as on the card: wire bytes "
+          f"{card.collectives.total_bytes:.4e} {dict(by_kind)} (reference "
+          f"{REFERENCE_DECODE[arch][2]:.4e}); the CPU route's all-gather "
+          f"excess {excess:.4e}, the stack's all-to-all {moved:.4e}")
+    assert card.collectives.total_bytes <= REFERENCE_DECODE[arch][2]
+    assert by_kind["all-to-all"] >= moved
+    assert excess == 16 * by_kind["all-to-all"]
+    assert card.flops == cpu.flops
+
+
+# xlstm-350m ``decode_32k`` on 2 x 16 x 16# xlstm-350m ``decode_32k`` on 2 x 16 x 16 (512 forced host devices, Auto
 # axes): GiB, FLOPs, wire bytes a device
 REFERENCE_DECODE_PODS = {"xlstm-350m": (0.19, "3.100e+08", 4.925e7)}
 

@@ -10,9 +10,12 @@ counts and the unsharded step.
   (the mLSTM readout's backward forms the state's gradient as a broadcast
   product).
 * A smoke grad step on a (2, 2) mesh of 4 gloo ranks, 3 heads (which
-  ``model`` does not divide, so every projection's weight is whole over
-  it), remat off and on: loss and gradients within 1e-5 of the unsharded
-  step's, each gradient in its parameter's placements.
+  ``model`` does not divide, so every input projection's weight is whole
+  over it; each ``rg_out/wo`` stack, sharded over its 2 groups there,
+  moves that shard to its rows by an all-to-all,
+  ``sharding.move_shards_off``), remat off and on: loss and gradients
+  within 1e-5 of the unsharded step's, each gradient in its parameter's
+  placements.
 * The mLSTM readout's gradients bit-equal to autograd of the einsum, and
   ``split_weight_grad`` off a mesh bit-equal to ``torch.einsum``.
 """
@@ -255,13 +258,16 @@ def sharded(tmp_path_factory):
 def test_sharded_smoke_step_matches_the_unsharded_step(remat, sharded):
     """The (2, 2) mesh's loss and every gradient within 1e-5 of the
     unsharded step's (relative; a gradient's to its largest magnitude); every projection's weight gradient went
-    through its TP slice (2 an sLSTM layer, 3 an mLSTM layer) and came
-    back in its parameter's placements."""
+    through its TP slice and came back in its parameter's placements:
+    ``lstm_wx`` (an sLSTM layer's), ``lstm_wqkv`` and ``lstm_wog`` (an
+    mLSTM layer's) by ``split_weight_grad``, ``rg_out/wo`` as its weight
+    arrives, its rows over ``model`` (before: by ``split_weight_grad``
+    too, the stack all-gathered whole)."""
     want = _grad_step(None, remat)
     got = {k[len(f"remat={remat}/"):]: v for k, v in sharded.items()
            if k.startswith(f"remat={remat}/")}
     cfg = get_config(XLSTM, smoke=True)
-    assert int(got.pop("sliced")) == 5 * cfg.n_layers // 2
+    assert int(got.pop("sliced")) == 3 * cfg.n_layers // 2
     assert int(got.pop("misplaced")) == 0
     assert sorted(got) == sorted(want)
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=TOL)
