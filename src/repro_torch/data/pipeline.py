@@ -28,6 +28,7 @@ import torch
 from repro_torch.configs.shapes import stub_inputs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
+from repro_torch.obs.spans import DATA, span
 
 
 @dataclass
@@ -88,7 +89,8 @@ class SyntheticLM:
 
     def next_batch(self) -> Dict[str, torch.Tensor]:
         st = self.state
-        batch = self._batch_at(st.step, st.shard)
+        with span(DATA):
+            batch = self._batch_at(st.step, st.shard)
         self.state = DataState(st.seed, st.step + 1, st.shard,
                                st.num_shards)
         return batch

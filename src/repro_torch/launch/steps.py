@@ -19,6 +19,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.spans import BACKWARD, FORWARD, OPTIMIZER_UPDATE, span
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.parallel.sharding import (NamedSharding, ShardingRules,
                                            axes_size, decode_state_shardings,
@@ -32,8 +33,11 @@ def _whole(t: torch.Tensor) -> torch.Tensor:
 
 
 def _loss_and_grads(params, batch, cfg: ModelConfig):
-    loss, metrics = transformer.loss_fn(params, batch, cfg)
-    grads = unflatten(params, torch.autograd.grad(loss, list(leaves(params))))
+    with span(FORWARD):
+        loss, metrics = transformer.loss_fn(params, batch, cfg)
+    with span(BACKWARD):
+        grads = torch.autograd.grad(loss, list(leaves(params)))
+    grads = unflatten(params, grads)
     metrics = {k: _whole(v) for k, v in metrics.items()}
     metrics["loss"] = _whole(loss)
     return grads, metrics
@@ -50,7 +54,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     def train_step(params, opt_state, batch):
         with use_mesh(mesh, rules):
             grads, metrics = _loss_and_grads(params, batch, cfg)
-            new_params, new_opt = optimizer.update(grads, opt_state, params)
+            with span(OPTIMIZER_UPDATE):
+                new_params, new_opt = optimizer.update(grads, opt_state,
+                                                       params)
         del grads
         return new_params, new_opt, metrics
 

@@ -36,6 +36,8 @@ from repro_torch.data import SyntheticLM
 from repro_torch.device import require_device
 from repro_torch.launch.steps import make_grad_step, make_train_step
 from repro_torch.models import init_params, param_count
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.spans import DATA, span
 from repro_torch.optim import (async_init, async_step, make_compressor,
                                make_optimizer)
 
@@ -132,13 +134,16 @@ def run(args, **cfg_overrides) -> dict:
         step_fn = make_train_step(cfg, opt)
 
     losses, step_seconds, ckpt_seconds = [], [], []
+    routed_before = _moe_counts()
     t0 = time.time()
     tokens_per_step = args.batch * args.seq
     for step in range(start_step, args.steps):
         if step == args.fail_at:
             raise RuntimeError(f"simulated node failure at step {step}")
         ts = time.time()
-        batch = {k: v.to(device) for k, v in data.next_batch().items()}
+        made = data.next_batch()
+        with span(DATA):
+            batch = {k: v.to(device) for k, v in made.items()}
         if use_async or compressor:
             grads, metrics = grad_fn(params, batch)
             if compressor:
@@ -183,7 +188,20 @@ def run(args, **cfg_overrides) -> dict:
     if losses:
         print(f"done: loss {result['first_loss']:.4f} -> "
               f"{result['last_loss']:.4f} over {result['steps']} steps")
+    if obs_metrics.enabled():
+        routed, dropped = (b - a for a, b in zip(routed_before,
+                                                 _moe_counts()))
+        if routed:
+            print(f"moe: {dropped:,} of {routed:,} routed assignments "
+                  f"dropped ({100 * dropped / routed:.2f}%; a remat "
+                  f"replay counts its forward's again)")
     return result
+
+
+def _moe_counts():
+    """(``moe.routed``, ``moe.dropped``) so far in this process."""
+    counters = obs_metrics.snapshot().get("counters", {})
+    return counters.get("moe.routed", 0), counters.get("moe.dropped", 0)
 
 
 def main() -> None:

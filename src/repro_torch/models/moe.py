@@ -27,6 +27,11 @@ On a mesh each rank builds the slots of its own experts alone
 (:func:`expert_slots`), as XLA partitions the reference's one-hot tensors
 over the experts' TP shards, so that the dispatch and combine products and
 their gradients run on the rank's experts at every length.
+
+Under a profiler (``obs.spans``) the block runs in ``repro_torch::moe``,
+forward and backward, its forward in ``moe.route``, ``moe.dispatch``,
+``moe.experts`` and ``moe.combine``; :func:`expert_slots` counts
+``moe.routed`` and ``moe.dropped`` (``obs.metrics.add``).
 """
 from __future__ import annotations
 
@@ -38,6 +43,9 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.obs import metrics
+from repro_torch.obs.spans import (MOE, MOE_COMBINE, MOE_DISPATCH,
+                                   MOE_EXPERTS, MOE_ROUTE, grad_span, span)
 from repro_torch.parallel.sharding import (constant_like, current_mesh,
                                            einsum, gather_like,
                                            local_map_calls, map_local,
@@ -116,6 +124,11 @@ def expert_slots(gate_idx: torch.Tensor, gate_vals: torch.Tensor, cap: int,
     slot = (torch.cumsum(assign, dim=1) * assign).sum(-1) - 1.0
     slot = slot.reshape(n, k, g).transpose(1, 2)
     keep = (slot >= 0) & (slot < cap)
+    if metrics.counting():
+        # the rank's assignments, and those without a slot (a remat
+        # replay counts them again)
+        metrics.add("moe.routed", (slot >= 0).sum())
+        metrics.add("moe.dropped", (slot >= cap).sum())
     # one nonzero at most a (token, slot): summing into zeros is exact, and
     # an assignment without a slot adds its 0 anywhere in its row
     flat = torch.where(keep, rel * cap + slot.long(), 0)
@@ -180,18 +193,29 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     operands are kept (``layers.output_products``), so that a remat replay
     runs none of them. Without grad each runs as its operands come, the
     combine's freed before the MLPs run."""
+    with span(MOE):
+        x, at_output = grad_span(MOE, x)
+        out, aux = _moe(p, x, cfg, dense_ff)
+        return at_output(out), aux
+
+
+def _moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
+         dense_ff: Optional[Params]):
     eq = "necd,ngec->ngd"
     eout, combine, aux = _routed(p, x, cfg)
     mlps = [q for q in (p.get("shared"), dense_ff) if q is not None]
     if torch.is_grad_enabled():
-        out, *ys = output_products(
-            [(eq, eout, combine)]
-            + [("...f,fd->...d", mlp_hidden(q, x, cfg), q["wo"].to(x.dtype))
-               for q in mlps])
+        with span(MOE_EXPERTS):
+            products = [("...f,fd->...d", mlp_hidden(q, x, cfg),
+                         q["wo"].to(x.dtype)) for q in mlps]
+        with span(MOE_COMBINE):
+            out, *ys = output_products([(eq, eout, combine)] + products)
     else:
-        out = einsum(eq, eout, combine)
+        with span(MOE_COMBINE):
+            out = einsum(eq, eout, combine)
         del eout, combine
-        ys = [apply_mlp(q, x, cfg) for q in mlps]
+        with span(MOE_EXPERTS):
+            ys = [apply_mlp(q, x, cfg) for q in mlps]
     out = out.reshape(x.shape)
     for y in ys:
         out = out + y
@@ -224,6 +248,43 @@ def _routed(p: Params, x: torch.Tensor, cfg: ModelConfig):
     n_groups, g = group_split(b * s, m.group_size)
     xg = x.reshape(n_groups, g, d)
 
+    with span(MOE_ROUTE):
+        gate_vals, gate_idx, aux = _route(p, xg, x, cfg)
+    cap = capacity(cfg, g)
+    with span(MOE_DISPATCH):
+        if isinstance(gate_vals, DTensor):
+            # the gates of groups routed on a slice of xg's go back to its
+            # layout (XLA's all-gather of the top-k's (n, g, k))
+            gate_vals, gate_idx = (gather_like(t, xg, 0)
+                                   for t in (gate_vals, gate_idx))
+            dispatch, combine = _slots_on_expert_shards(
+                gate_idx, gate_vals, m.num_experts, cap)
+        else:
+            dispatch, combine = assign_slots(gate_idx, gate_vals,
+                                             m.num_experts, cap)
+
+        dt = x.dtype
+        spec = "moe_ecd_grouped" if m.dispatch_local else "moe_ecd"
+        # dispatch and combine hold the rank's experts; a group that is
+        # whole over the batch axes (decode's one token a row) gives the
+        # combine the tokens' batch shards too, as XLA carries them back
+        # into it, where DTensor would combine every token on each rank
+        combine = shard_over(combine, 1, "batch")
+        expert_in = einsum("ngd,ngec->necd", xg, dispatch.to(dt))
+        expert_in = shard(expert_in, spec)
+    with span(MOE_EXPERTS):
+        w = p["experts"]
+        h = einsum("necd,edf->necf", expert_in, w["wi"].to(dt))
+        gte = einsum("necd,edf->necf", expert_in, w["wg"].to(dt))
+        h = F.silu(gte) * h
+        eout = einsum("necf,efd->necd", h, w["wo"].to(dt))
+    return shard(eout, spec), combine.to(dt), aux
+
+
+def _route(p: Params, xg, x, cfg: ModelConfig):
+    """The router of the groups xg (n, g, d) of x: (gate_vals, gate_idx),
+    each (n, g, k), and the aux losses."""
+    m = cfg.moe
     w = p["router"]["w"].to(x.dtype)
     xr = xg
     if torch.is_grad_enabled() and w.requires_grad:
@@ -242,7 +303,6 @@ def _routed(p: Params, x: torch.Tensor, cfg: ModelConfig):
     z_loss = m.router_z_coef * z.square().mean()
     me = probs.reshape(-1, m.num_experts).mean(0)
 
-    cap = capacity(cfg, g)
     if isinstance(probs, DTensor):
         gates = on_group_shards(functools.partial(_gates, k=m.top_k), probs,
                                 n_out=2)
@@ -255,31 +315,5 @@ def _routed(p: Params, x: torch.Tensor, cfg: ModelConfig):
         m.num_experts, device=x.device), gate_idx)).float()
     ce = assign.sum(2).reshape(-1, m.num_experts).mean(0)
     aux_loss = m.aux_coef * m.num_experts * (me * ce).sum()
-
-    if isinstance(probs, DTensor):
-        # the gates of groups routed on a slice of xg's go back to its
-        # layout (XLA's all-gather of the top-k's (n, g, k))
-        gate_vals, gate_idx = (gather_like(t, xg, 0)
-                               for t in (gate_vals, gate_idx))
-        dispatch, combine = _slots_on_expert_shards(
-            gate_idx, gate_vals, m.num_experts, cap)
-    else:
-        dispatch, combine = assign_slots(gate_idx, gate_vals, m.num_experts,
-                                         cap)
-
-    dt = x.dtype
-    spec = "moe_ecd_grouped" if m.dispatch_local else "moe_ecd"
-    # dispatch and combine hold the rank's experts; a group that is whole
-    # over the batch axes (decode's one token a row) gives the combine the
-    # tokens' batch shards too, as XLA carries them back into it, where
-    # DTensor would combine every token on each rank
-    combine = shard_over(combine, 1, "batch")
-    expert_in = einsum("ngd,ngec->necd", xg, dispatch.to(dt))
-    expert_in = shard(expert_in, spec)
-    w = p["experts"]
-    h = einsum("necd,edf->necf", expert_in, w["wi"].to(dt))
-    gte = einsum("necd,edf->necf", expert_in, w["wg"].to(dt))
-    h = F.silu(gte) * h
-    eout = einsum("necf,efd->necd", h, w["wo"].to(dt))
-    return shard(eout, spec), combine.to(dt), {
-        "aux_loss": aux_loss, "z_loss": z_loss, "expert_load": me}
+    return gate_vals, gate_idx, {"aux_loss": aux_loss, "z_loss": z_loss,
+                                 "expert_load": me}

@@ -40,6 +40,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import require_device
+from repro_torch.obs.spans import HEAD, grad_span, span
 from repro_torch.parallel.sharding import (constant_like, einsum,
                                            local_map_calls, map_local,
                                            move_shards_off, redistribute,
@@ -447,8 +448,9 @@ def _embed_on_shards(tokens: DTensor, table: DTensor) -> DTensor:
     return out if back == out_pl else redistribute(out, back)
 
 
-def forward(params: Params, batch: Batch,
-            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+def _trunk(params: Params, batch: Batch,
+           cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """The embedding and every block: (the last block's output, aux)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     dt = dtype_of(cfg.dtype)
@@ -495,7 +497,12 @@ def forward(params: Params, batch: Batch,
         x, a = _apply_block(kind, params["tail"][f"t{si}_{kind}"], x, cfg,
                             positions, enc)
         aux_total = {k: aux_total[k] + a[k] for k in aux_total}
+    return x, aux_total
 
+
+def _head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The final norm, the head product and the vocab mask: the logits."""
+    dt = dtype_of(cfg.dtype)
     x = apply_norm(params["final_norm"], x, cfg)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"])
@@ -504,8 +511,13 @@ def forward(params: Params, batch: Batch,
         logits = _weak(cfg.logits_softcap, dt) * torch.tanh(
             logits.float() / cfg.logits_softcap).to(dt)
     logits = _mask_pad_vocab(logits, cfg)
-    logits = shard(logits, "logits")
-    return logits, aux_total
+    return shard(logits, "logits")
+
+
+def forward(params: Params, batch: Batch,
+            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    x, aux = _trunk(params, batch, cfg)
+    return _head(params, x, cfg), aux
 
 
 def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -521,13 +533,16 @@ def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def loss_fn(params: Params, batch: Batch,
             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    logits, aux = forward(params, batch, cfg)
+    x, aux = _trunk(params, batch, cfg)
     labels = batch["labels"]
     mask: Optional[torch.Tensor] = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(labels, dtype=torch.float32)
-    nll = cross_entropy(logits, labels)
-    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    # the head and the loss, forward and backward (``obs.spans``)
+    with span(HEAD):
+        x, at_output = grad_span(HEAD, x)
+        nll = cross_entropy(_head(params, x, cfg), labels)
+        ce = at_output((nll * mask).sum() / torch.clamp(mask.sum(), min=1.0))
     loss = ce + aux["aux_loss"] + aux["z_loss"]
     return loss, {"ce": ce, **aux}
 

@@ -1,7 +1,7 @@
 """Unified observability layer: trace export, metrics, run ledger, copied
 from ``repro.obs``.
 
-Three independent parts, threaded through every engine:
+Four parts, threaded through every engine:
 
   * :mod:`repro_torch.obs.trace_export` — convert any synthetic trace
     (scalar DES, fleet per-job, emulator recording) into Chrome
@@ -23,13 +23,17 @@ Three independent parts, threaded through every engine:
     DES-vs-emulator error) appended when the ledger is on;
     ``python -m repro_torch.obs.report`` renders per-figure error bands
     and compares two ledgers for drift.
+  * :mod:`repro_torch.obs.spans` — the training step's named ranges
+    (``repro_torch::forward``, ``::moe``, ``::head`` ...), on the torch
+    profiler's clock beside the kernels, recorded only while a profiler
+    records.
 
 This package deliberately imports nothing from :mod:`repro_torch.core`,
 so every engine may import it without cycles.
 """
 from __future__ import annotations
 
-from . import ledger, metrics  # noqa: F401
+from . import ledger, metrics, spans  # noqa: F401
 from .schema import validate_meta  # noqa: F401
 from .timeline import LinkTimeline  # noqa: F401
 from .trace_export import fleet_to_chrome_trace, to_chrome_trace  # noqa: F401

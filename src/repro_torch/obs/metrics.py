@@ -21,13 +21,27 @@ the existing speedup-vs-reference gate.
 Enable via ``REPRO_METRICS=1``, :func:`enable`, or the
 :func:`collecting` context manager.  Histograms store bounded summaries
 (count/sum/min/max), never sample lists.
+
+Device counters (:func:`add`) count inside a training step without
+reading the device: each sums a 0-d tensor into a total kept on that
+tensor's device; :func:`snapshot` reads the totals into ``counters`` and
+:func:`reset` drops them. They record while collection is on or while a
+torch profiler records (:func:`counting`, ``spans.tracing``), so a traced
+step counts and an untraced one pays one check a site. ``moe.routed``
+and ``moe.dropped`` (``models/moe.py``) count a MoE's assignments on the
+rank's experts and those left without a slot; a remat replay counts its
+forward's again, so only their ratio is defined.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import threading
-from typing import Dict, Iterator, Mapping
+from typing import Dict, Iterator, Mapping, Tuple
+
+import torch
+
+from .spans import tracing
 
 _enabled = os.environ.get("REPRO_METRICS", "") not in ("", "0")
 _lock = threading.Lock()
@@ -35,6 +49,8 @@ _lock = threading.Lock()
 _counters: Dict[str, float] = {}
 _gauges: Dict[str, float] = {}
 _hists: Dict[str, Dict[str, float]] = {}
+# device counters: (name, device) -> a 0-d running total on that device
+_totals: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
 
 def enabled() -> bool:
@@ -70,6 +86,27 @@ def inc(name: str, n: float = 1) -> None:
         return
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+def counting() -> bool:
+    """Do the device counters record (collection on, or a profiler
+    recording)? A site checks this before it computes what it adds."""
+    return _enabled or tracing()
+
+
+def add(name: str, t: torch.Tensor) -> None:
+    """Add the 0-d tensor ``t`` to device counter ``name``, on ``t``'s
+    device and without a host read (no-op unless :func:`counting`)."""
+    if not counting():
+        return
+    t = t.detach()
+    key = (name, t.device)
+    with _lock:
+        total = _totals.get(key)
+        if total is None:
+            _totals[key] = t.clone()
+        else:
+            total.add_(t)
 
 
 def gauge(name: str, value: float) -> None:
@@ -110,11 +147,15 @@ def merge_run(prefix: str, counters: Mapping[str, float]) -> None:
 
 
 def snapshot() -> Dict[str, object]:
-    """A JSON-ready copy of the whole registry."""
+    """A JSON-ready copy of the whole registry, the device counters read
+    (summed over devices) into ``counters``."""
     with _lock:
         out: Dict[str, object] = {}
-        if _counters:
-            out["counters"] = dict(_counters)
+        counters = dict(_counters)
+        for (name, _), total in _totals.items():
+            counters[name] = counters.get(name, 0) + total.item()
+        if counters:
+            out["counters"] = counters
         if _gauges:
             out["gauges"] = dict(_gauges)
         if _hists:
@@ -126,5 +167,6 @@ def reset() -> None:
     """Drop every recorded value (collection state is untouched)."""
     with _lock:
         _counters.clear()
+        _totals.clear()
         _gauges.clear()
         _hists.clear()
